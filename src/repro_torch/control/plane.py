@@ -6,8 +6,8 @@ Responsibilities, as in the reference:
   :class:`WorkloadControlConfig` and null it when the architecture has no
   prunable scope at this TP degree.
 * **build cache** — own the signature-keyed :class:`PlanCompileCache`;
-  the caller supplies a ``builder(static_or_none) -> (step_fn, n_slots,
-  aux)`` and the plane guarantees each canonical signature builds once,
+  the caller supplies a ``builder(static_or_none) -> step_fn`` and the
+  plane guarantees each canonical signature builds once,
   so the build and hit counts keep the reference's meaning.
 * **controller** — the sim-scale :class:`SemiController` (Eq. 1–3), fed
   either the χ-oracle or the closed telemetry loop (``times=measured``).
@@ -23,10 +23,11 @@ trainer's), come with the training slice; this plane plans in per-rank
 shard blocks and clamps projected sheds, as the reference's serve engine
 asks it to.
 
-Plan tensors: ``bucket_by_rank`` and ``mig_src`` stay on the host (the
-layers read the bucket as a Python integer to pick a branch, which would
-cost a device sync if it lived on the card); the priority lists live on
-the plane's device, where the kernels read their keep ids.
+Plan tensors: ``bucket_by_rank`` stays on the host (the layers read the
+bucket as a Python integer to pick a branch, which would cost a device
+sync if it lived on the card); the priority lists live on the plane's
+device, where the kernels read their keep ids. The reference's
+``mig_src`` vector has no reader before migration (the training slice).
 """
 from __future__ import annotations
 
@@ -95,7 +96,8 @@ class PlanCapacity:
 class ControlPlane:
     """Plan assembly, build caching, mitigation dispatch and telemetry.
 
-    ``builder(static_or_none)`` returns ``(step_fn, n_plan_slots, aux)``.
+    ``builder(static_or_none)`` returns the step function for that plan
+    skeleton.
     """
 
     def __init__(self, model_cfg: ModelConfig, wc: WorkloadControlConfig, *,
@@ -195,26 +197,23 @@ class ControlPlane:
     def dispatch(self, plan: WorkloadPlan):
         """Step + plan tensors for a plan, on the real group.
 
-        Projects the (possibly sim-scale) plan onto the real TP group,
-        picks the step built for the projected signature and pads the
-        source vector to its slot count. Returns ``(step_fn, plan_arrays,
-        projected)``; ``projected`` is the plan that actually EXECUTES.
+        Projects the (possibly sim-scale) plan onto the real TP group and
+        picks the step built for the projected signature. Returns
+        ``(step_fn, plan_arrays, projected)``; ``projected`` is the plan
+        that actually EXECUTES.
         """
         proj = project_plan(plan, sim_ranks=self.sim_ranks, tp=self.tp,
                             real_nb=self.scopes.get("ffn", 0))
         st_iter = dataclasses.replace(self.static, mig_shed=proj.mig_sheds,
                                       mig_blocks=0)
-        step_fn, n_slots, _ = self.cache.get(st_iter)
+        step_fn = self.cache.get(st_iter)
         pri = (scopes_lib.plan_pri_arrays(self.scopes,
                                           plan.dynamic.pri_lists, self.tp,
                                           device=self.device)
                if plan.dynamic.pri_lists else self.identity_pri)
-        srcs = np.full((max(n_slots, 1),), -1, np.int32)
-        k = min(len(proj.mig_srcs), srcs.shape[0])
-        srcs[:k] = np.asarray(proj.mig_srcs[:k], np.int32)
         arrays = {"bucket_by_rank": torch.as_tensor(
                       np.asarray(proj.bucket_by_rank, np.int32)),
-                  "mig_src": torch.as_tensor(srcs), "pri": pri}
+                  "pri": pri}
         return step_fn, arrays, proj
 
     def work_frac(self, plan: WorkloadPlan) -> np.ndarray:

@@ -285,9 +285,7 @@ class ServeEngine:
                     toks[i] = torch.argmax(logits, dim=-1)
                 return toks, cache
 
-            n_plan_slots = (max(1, static.num_sources)
-                            if static is not None else 0)
-            return stepper, n_plan_slots, None
+            return stepper
 
         # ---- the control plane (build cache + controller + telemetry) ----
         self.sim_ranks = c.sim_ranks or tp
@@ -309,7 +307,7 @@ class ServeEngine:
                         "hetero": c.hetero_kind, "seed": c.seed,
                         **(trace_tag or {})},
             measure_noise=c.measure_noise)
-        self._base_step, self._base_plan_slots, _ = self.plane.base
+        self._base_step = self.plane.base
         self.schedule = self.plane.schedule
         self.controller = self.plane.controller
 
@@ -422,12 +420,11 @@ class ServeEngine:
         dense_latency = self.it_model.step_time(chis, np.ones(self.sim_ranks))
         plan_report = None
         plan = None
-        proj = None
         frac = np.ones(self.sim_ranks)
         if self.controller is not None:
             times = self.plane.controller_times(chis)
             plan, plan_report = self.plane.decide(times)
-            step_fn, plan_arrays, proj = self.plane.dispatch(plan)
+            step_fn, plan_arrays, _ = self.plane.dispatch(plan)
             frac = self.plane.work_frac(plan)
             latency = self.it_model.step_time(chis, frac * chunk_scale)
         else:
@@ -508,14 +505,6 @@ class ServeEngine:
         if plan_report is not None:
             report["stragglers"] = list(plan_report.stragglers)
             report["max_bucket"] = int(plan_report.bucket_by_rank.max())
-            if proj is not None and proj.mig_srcs:
-                report["mig_srcs"] = [int(s) for s in proj.mig_srcs]
-                report["mig_shed"] = [int(m) for m in proj.mig_sheds]
-            if plan_report.mig_srcs:
-                report["planned_mig_srcs"] = [int(s)
-                                              for s in plan_report.mig_srcs]
-                report["planned_mig_shed"] = [int(m)
-                                              for m in plan_report.mig_shed]
         self.history.append(report)
         return report
 

@@ -54,10 +54,6 @@ class ControlContext:
         # this rank's bucket as a host integer, read once per plan
         self.bucket = int(self.bucket_by_rank[0])
 
-    @property
-    def tp(self) -> int:
-        return self.static.tp_size
-
     def pri_list(self, scope: str) -> torch.Tensor:
         """This rank's keep-first list for a scope."""
         pri = self.pri[scope]

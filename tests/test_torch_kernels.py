@@ -3,8 +3,8 @@
 On the CPU each port wrapper runs its kernel's plain PyTorch version; the
 JAX wrappers run their Pallas kernels in interpret mode. Same inputs
 (numpy, from a seed), float32, rtol = atol = 1e-5 (both accumulate in
-f32; only the summation order differs). The tests marked ``cuda`` hold
-the CUDA kernels against the same plain versions and skip without a GPU.
+f32; only the summation order differs). ``tests/test_torch_cuda.py``
+holds the CUDA kernels against the same plain versions on a GPU.
 """
 import numpy as np
 import pytest
@@ -199,60 +199,3 @@ def test_cpu_tensors_never_move_a_launch_counter():
     assert tops.launch_counts() == {"block_pruned_matmul": 0,
                                     "fused_pruned_ffn": 0,
                                     "fused_decode_attention": 0}
-
-
-# ---------------------------------------------------------------------------
-# the CUDA kernels against their plain versions (need a GPU)
-# ---------------------------------------------------------------------------
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
-
-
-def _close(got, ref, dtype):
-    got, ref = got.float().cpu(), ref.float().cpu()
-    if dtype == torch.float32:
-        err = ((got - ref).abs() / ref.abs().clamp(min=1e-6)).max()
-        assert float((got - ref).abs().max()) <= 1e-4 * float(
-            ref.abs().max()) or float(err) <= 1e-4
-    else:
-        assert float((got - ref).abs().max()) <= 2e-2 * float(
-            ref.abs().max())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("block", [8, 128])
-def test_cuda_kernels_match_plain(cuda_device, dtype, block):
-    g = torch.Generator(device=cuda_device).manual_seed(block)
-
-    def rnd(*shape, scale=1.0):
-        return (torch.randn(shape, generator=g, device=cuda_device)
-                * scale).to(dtype)
-
-    K, N, H = 4 * block, 96, 8 * block
-    x, w = rnd(8, K), rnd(K, N)
-    keep = torch.tensor([0, 2, 3], dtype=torch.int32, device=cuda_device)
-    _close(tops.block_pruned_matmul(x, w, keep, block=block),
-           tops.block_pruned_matmul_plain(x, w, keep, block), dtype)
-    w_up, w_gate, w_down = rnd(K, H, scale=0.1), rnd(K, H, scale=0.1), \
-        rnd(H, N, scale=0.1)
-    keep_h = torch.tensor([1, 4, 6], dtype=torch.int32, device=cuda_device)
-    for gate, act in ((w_gate, tops.silu), (None, tops.gelu)):
-        _close(tops.fused_pruned_ffn(x, w_up, w_down, keep_h, gate, act,
-                                     block),
-               tops.fused_pruned_ffn_plain(x, w_up, w_down, keep_h, gate,
-                                           act, block), dtype)
-    q, k, v = rnd(4, 8, 1, 64), rnd(4, 2, 200, 64), rnd(4, 2, 200, 64)
-    cur = torch.tensor([0, 31, 199, 2 ** 30], dtype=torch.int32,
-                       device=cuda_device)
-    for window in (0, 40):
-        _close(tops.fused_decode_attention(q, k, v, cur_pos=cur,
-                                           window=window),
-               tops.gqa_decode_attn_plain(q, k, v, cur, window), dtype)
-    torch.cuda.synchronize()
