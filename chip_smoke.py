@@ -27,11 +27,30 @@ Phases, each printing one line of its own; any failure exits non-zero:
 5. profile  — eight decode-only steps of the same engine under
               torch.profiler: wall vs device-kernel time per step and
               the device time by kernel family.
+6. grad-kernels — the backward family (#8-#12) against its plain
+              versions at the shapes the ViT-1B train run gives it
+              (tp 4, 520 rows, block 8), f32 and bf16 with the same
+              tolerances, every output NaN-filled before the launch so a
+              skipped element shows; block 128 at a small shape with the
+              compact modes and an unsorted keep list; each timed like
+              phase 2, plus the forward kernels (#2, #3) at the train
+              shapes.
+7. train-reference — one controlled step (rank 0 resized and a migration
+              source) of a two-layer, full-width ViT-1B in f32 at tp 4:
+              loss and every gradient, kernel path against plain path.
+8. train    — the port's run_training on full-width ViT-1B (24 layers,
+              f32, random weights from a seed) at tp 4 under SEMI for 12
+              steps; every launch count set to 0 just before and read just
+              after, and each kernel of the path must be > 0; every loss
+              finite; at least one resized and one migrating step.
+9. train-profile — three steps of the same model under the run's plan,
+              under torch.profiler: wall vs device time, by family.
 
-Then one JSON line of per-kernel numbers and, last, the JSON line
-``{"ok": true, "device": {...}}``. The engine's latencies are MODELED (a
-host-CPU calibration) and are not printed as card times; the serve phase
-prints host wall-clock numbers only.
+Then one JSON line of per-kernel numbers (launches: the serving kernels
+from phase 4, the backward family from phase 8) and, last, the JSON line
+``{"ok": true, "device": {...}}``. The engines' latencies are MODELED (a
+host-CPU calibration) and are not printed as card times; the serve and
+train phases print host wall-clock numbers only.
 """
 import json
 import math
@@ -48,11 +67,22 @@ REPLACES = {
     "block_pruned_matmul": "src/repro/kernels/pruned_matmul.py:81",
     "fused_pruned_ffn": "src/repro/kernels/pruned_matmul.py:547",
     "fused_decode_attention": "src/repro/kernels/decode_attn.py:129",
+    "pruned_matmul_dx": "src/repro/kernels/pruned_matmul.py:165",
+    "pruned_matmul_dw": "src/repro/kernels/pruned_matmul.py:255",
+    "outpruned_matmul": "src/repro/kernels/pruned_matmul.py:330",
+    "outpruned_matmul_dx": "src/repro/kernels/pruned_matmul.py:388",
+    "outpruned_matmul_dw": "src/repro/kernels/pruned_matmul.py:453",
 }
+_GRAD_CU = "src/repro_torch/kernels/csrc/pruned_grad.cu"
 SOURCES = {
     "block_pruned_matmul": "src/repro_torch/kernels/csrc/block_pruned_matmul.cu",
     "fused_pruned_ffn": "src/repro_torch/kernels/csrc/fused_pruned_ffn.cu",
     "fused_decode_attention": "src/repro_torch/kernels/csrc/gqa_decode_attn.cu",
+    "pruned_matmul_dx": _GRAD_CU,
+    "pruned_matmul_dw": _GRAD_CU,
+    "outpruned_matmul": _GRAD_CU,
+    "outpruned_matmul_dx": _GRAD_CU,
+    "outpruned_matmul_dw": _GRAD_CU,
 }
 
 
@@ -166,7 +196,7 @@ def main():
     per_kernel = {}
 
     def record(name, case, dtype, got, ref, timings, nbytes, flops,
-               representative):
+               representative, phase="kernels"):
         e, m = errs(got, ref)
         finite = bool(torch.isfinite(got.float()).all())
         tol = (F32_TOL if dtype == torch.float32 else BF16_TOL) * m
@@ -176,7 +206,7 @@ def main():
         checked.append(f"{name} {case} {dname}")
         t = ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else
                       f"{k} {v}" for k, v in timings.items())
-        say("kernels", f"{name} {case} {dname}: max|err| {e:.3e} "
+        say(phase, f"{name} {case} {dname}: max|err| {e:.3e} "
             f"(max|ref| {m:.3e}, rel {e / max(m, 1e-30):.2e}) "
             f"{'ok' if ok else 'FAIL'}; {t}; bound {b_ms:.4f} ms "
             f"({b_by})")
@@ -425,7 +455,9 @@ def main():
         problems.append("a token outside the vocabulary")
     if len({tuple(c.tokens.tolist()) for c in comps}) < 2:
         problems.append("every request generated the same tokens")
-    if min(launches.values()) <= 0:
+    serve_kernels = ("block_pruned_matmul", "fused_pruned_ffn",
+                     "fused_decode_attention")
+    if min(launches[k] for k in serve_kernels) <= 0:
         problems.append(f"a kernel never launched: {launches}")
     if resized == 0:
         problems.append("no step ran a resized plan")
@@ -486,14 +518,438 @@ def main():
         say("profile", f"  top: {ms / n_prof:.3f} ms/step, {calls / n_prof:.0f}"
             f"/step  {name[:90]}")
 
+    # ---------------------------------------------------------------- 6
+    # the backward family (#8-#12) at the shapes the ViT-1B train run
+    # gives it (tp = 4, batch 8 x 65 tokens = 520 rows, block 8), with
+    # the keep counts of its straggler (bucket 7 of 8): 32/256 qkv
+    # blocks, 8/64 attn_out blocks, 32 - 2 (shed) = 30/256 FFN blocks
+    M_T, D_V, B8 = 520, 2048, 8
+    ATT_LOC = 512                       # 16 heads x 128 / tp 4
+    FF_LOC = 2048                       # 8192 / tp 4
+
+    def kept_sorted(nb, kc, seed):
+        g = torch.Generator().manual_seed(seed)
+        return torch.sort(torch.randperm(nb, generator=g)[:kc]).values.to(
+            torch.int32).to(dev)
+
+    def rows_of(w, keep, block):
+        return w.reshape(-1, block, w.shape[1])[keep.long()].reshape(
+            -1, w.shape[1])
+
+    def grad_case(name, case, dtype, make, kernel, plain, library, out_shape,
+                  nbytes, flops, rep, timed=True):
+        """One kernel check: its output starts as NaN (a skipped element
+        shows), then the timings when ``timed``."""
+        n_sets = copies_for(nbytes) if timed else 1
+        sets = [make() for _ in range(n_sets)]
+        out = torch.full(out_shape, float("nan"), dtype=dtype, device=dev)
+        got = kernel(sets[0], out)
+        torch.cuda.synchronize()
+        if got.data_ptr() != out.data_ptr():
+            raise SystemExit(f"{name}: the kernel did not write into `out`")
+        ref = plain(sets[0])
+        timings = {}
+        if timed:
+            timings = {
+                "ms": time_ms(lambda i: kernel(sets[i], None), n_sets),
+                "device_ms": device_ms(lambda i: kernel(sets[i], None),
+                                       n_sets),
+                "plain_ms": time_ms(lambda i: plain(sets[i]), n_sets),
+                "library_ms": (time_ms(lambda i: library(sets[i]), n_sets)
+                               if library is not None else None)}
+        record(name, case, dtype, got, ref, timings, nbytes, flops, rep,
+               "grad-kernels")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.finfo(dtype).bits // 8
+        f32 = dtype == torch.float32
+        for wname, N, nb, kb in (("wq", ATT_LOC, D_V // B8, 32),
+                                 ("wo", D_V, ATT_LOC // B8, 8)):
+            keep = kept_sorted(nb, kb, 11 + kb)
+            order = ops.inverse_order(keep, nb)
+            K = nb * B8
+
+            def make_dx(N=N, K=K, keep=keep):
+                dy, w = rnd((M_T, N), dtype), rnd((K, N), dtype, 0.02)
+                return dy, w, rows_of(w, keep, B8)
+            grad_case(
+                "pruned_matmul_dx", f"{wname} dy[520,{N}] . w[{K},{N}]^T "
+                f"keep {kb}/{nb}", dtype, make_dx,
+                lambda s, out, order=order, kb=kb: ops.pruned_matmul_dx(
+                    s[0], s[1], order, kb=kb, block=B8, out=out),
+                lambda s, order=order, kb=kb: ops.pruned_matmul_dx_plain(
+                    s[0], s[1], order, kb, B8),
+                lambda s: torch.matmul(s[0], s[2].t()), (M_T, K),
+                (M_T * N + kb * B8 * N + M_T * K) * es + nb * 4,
+                2 * M_T * N * kb * B8, f32 and wname == "wq")
+
+            def make_dw(N=N, K=K, keep=keep):
+                x, dy = rnd((M_T, K), dtype), rnd((M_T, N), dtype)
+                xk = x.reshape(M_T, -1, B8)[:, keep.long()].reshape(M_T, -1)
+                return x, dy, xk.t().contiguous()
+            grad_case(
+                "pruned_matmul_dw", f"{wname} x[520,{K}]^T . dy[520,{N}] "
+                f"keep {kb}/{nb}", dtype, make_dw,
+                lambda s, out, order=order, kb=kb: ops.pruned_matmul_dw(
+                    s[0], s[1], order, kb=kb, block=B8, out=out),
+                lambda s, order=order, kb=kb: ops.pruned_matmul_dw_plain(
+                    s[0], s[1], order, kb, B8),
+                lambda s: torch.matmul(s[2], s[1]), (K, N),
+                (M_T * kb * B8 + M_T * N + K * N) * es + nb * 4,
+                2 * M_T * N * kb * B8, f32 and wname == "wq")
+
+        # the FFN's backward: 30 kept blocks of the 256 of w_up_r / w_down_r
+        nb, kb = FF_LOC // B8, 30
+        C = kb * B8
+        keep = kept_sorted(nb, kb, 13)
+        order = ops.inverse_order(keep, nb)
+
+        def make_ffn():
+            x, dy = rnd((M_T, D_V), dtype), rnd((M_T, D_V), dtype)
+            w_up = rnd((D_V, FF_LOC), dtype, 0.02)
+            w_down = rnd((FF_LOC, D_V), dtype, 0.02)
+            dyc = rnd((M_T, C), dtype)
+            up_k = w_up.reshape(D_V, nb, B8)[:, keep.long()].reshape(D_V, C)
+            return {"x": x, "dy": dy, "w_up": w_up, "w_down": w_down,
+                    "dyc": dyc, "up_k": up_k, "up_kt": up_k.t().contiguous(),
+                    "down_k": rows_of(w_down, keep, B8),
+                    "xt": x.t().contiguous()}
+        ffn_bytes = 3 * D_V * FF_LOC * es
+        grad_case(
+            "pruned_matmul_dx", f"FFN dh: dy[520,2048] . w_down[2048,2048]^T "
+            f"compact keep {kb}/{nb}", dtype, make_ffn,
+            lambda s, out: ops.pruned_matmul_dx(
+                s["dy"], s["w_down"], keep, kb=kb, block=B8,
+                compact_out=True, out=out),
+            lambda s: ops.pruned_matmul_dx_plain(s["dy"], s["w_down"], keep,
+                                                 kb, B8, True),
+            lambda s: torch.matmul(s["dy"], s["down_k"].t()), (M_T, C),
+            (M_T * D_V + C * D_V + M_T * C) * es + kb * 4,
+            2 * M_T * D_V * C, False)
+        grad_case(
+            "pruned_matmul_dw", f"FFN dW_down: h[520,{C}]^T . dy[520,2048] "
+            f"x_compact keep {kb}/{nb}", dtype, make_ffn,
+            lambda s, out: ops.pruned_matmul_dw(
+                s["dyc"], s["dy"], order, kb=kb, block=B8, x_compact=True,
+                out=out),
+            lambda s: ops.pruned_matmul_dw_plain(s["dyc"], s["dy"], order,
+                                                 kb, B8, True),
+            lambda s: torch.matmul(s["dyc"].t(), s["dy"]), (FF_LOC, D_V),
+            (M_T * C + M_T * D_V + FF_LOC * D_V) * es + nb * 4,
+            2 * M_T * D_V * C, False)
+        grad_case(
+            "outpruned_matmul", f"FFN recompute: x[520,2048] . "
+            f"w_up[:, keep {kb}/{nb}]", dtype, make_ffn,
+            lambda s, out: ops.outpruned_matmul(s["x"], s["w_up"], keep,
+                                                block=B8, out=out),
+            lambda s: ops.outpruned_matmul_plain(s["x"], s["w_up"], keep, B8),
+            lambda s: torch.matmul(s["x"], s["up_k"]), (M_T, C),
+            (M_T * D_V + D_V * C + M_T * C) * es + kb * 4,
+            2 * M_T * D_V * C, f32)
+        grad_case(
+            "outpruned_matmul_dx", f"FFN dx: dpre[520,{C}] . "
+            f"w_up[:, keep {kb}/{nb}]^T", dtype, make_ffn,
+            lambda s, out: ops.outpruned_matmul_dx(s["dyc"], s["w_up"], keep,
+                                                   block=B8, out=out),
+            lambda s: ops.outpruned_matmul_dx_plain(s["dyc"], s["w_up"],
+                                                    keep, B8),
+            lambda s: torch.matmul(s["dyc"], s["up_kt"]), (M_T, D_V),
+            (M_T * C + D_V * C + M_T * D_V) * es + kb * 4,
+            2 * M_T * D_V * C, f32)
+        grad_case(
+            "outpruned_matmul_dw", f"FFN dW_up: x[520,2048]^T . "
+            f"dpre[520,{C}] keep {kb}/{nb}", dtype, make_ffn,
+            lambda s, out: ops.outpruned_matmul_dw(s["x"], s["dyc"], order,
+                                                   kb=kb, block=B8, out=out),
+            lambda s: ops.outpruned_matmul_dw_plain(s["x"], s["dyc"], order,
+                                                    kb, B8),
+            lambda s: torch.matmul(s["xt"], s["dyc"]), (D_V, FF_LOC),
+            (M_T * D_V + M_T * C + D_V * FF_LOC) * es + nb * 4,
+            2 * M_T * D_V * C, f32)
+        del make_ffn
+
+        # the forward kernels at the train shapes (designed for M = 8, so
+        # each weight element is read once per 8-row tile: 65 times here)
+        keep = kept_sorted(256, 32, 43)
+        n_sets = copies_for(D_V * ATT_LOC * es)
+        xs = [rnd((M_T, D_V), dtype) for _ in range(n_sets)]
+        ws = [rnd((D_V, ATT_LOC), dtype, 0.02) for _ in range(n_sets)]
+        xk = [x.reshape(M_T, 256, B8)[:, keep.long()].reshape(M_T, -1)
+              for x in xs]
+        wk = [rows_of(w, keep, B8) for w in ws]
+        got = ops.block_pruned_matmul(xs[0], ws[0], keep, block=B8)
+        ref = ops.block_pruned_matmul_plain(xs[0], ws[0], keep, B8)
+        timings = {
+            "ms": time_ms(lambda i: ops.block_pruned_matmul(
+                xs[i], ws[i], keep, block=B8), n_sets),
+            "device_ms": device_ms(lambda i: ops.block_pruned_matmul(
+                xs[i], ws[i], keep, block=B8), n_sets),
+            "plain_ms": time_ms(lambda i: ops.block_pruned_matmul_plain(
+                xs[i], ws[i], keep, B8), n_sets),
+            "library_ms": time_ms(lambda i: torch.matmul(xk[i], wk[i]),
+                                  n_sets)}
+        record("block_pruned_matmul", "train shape x[520,2048] @ "
+               "wq_r[2048,512] block 8 keep 32/256", dtype, got, ref,
+               timings, (M_T * 256 + 256 * ATT_LOC + M_T * ATT_LOC) * es,
+               2 * M_T * 256 * ATT_LOC, False, "grad-kernels")
+        del xs, ws, xk, wk
+        keep = kept_sorted(FF_LOC // B8, 30, 44)
+        n_sets = copies_for(2 * D_V * FF_LOC * es)
+        xs = [rnd((M_T, D_V), dtype) for _ in range(n_sets)]
+        wus = [rnd((D_V, FF_LOC), dtype, 0.02) for _ in range(n_sets)]
+        wds = [rnd((FF_LOC, D_V), dtype, 0.02) for _ in range(n_sets)]
+        got = ops.fused_pruned_ffn(xs[0], wus[0], wds[0], keep, None,
+                                   ops.gelu, B8)
+        ref = ops.fused_pruned_ffn_plain(xs[0], wus[0], wds[0], keep, None,
+                                         ops.gelu, B8)
+        timings = {
+            "ms": time_ms(lambda i: ops.fused_pruned_ffn(
+                xs[i], wus[i], wds[i], keep, None, ops.gelu, B8), n_sets),
+            "device_ms": device_ms(lambda i: ops.fused_pruned_ffn(
+                xs[i], wus[i], wds[i], keep, None, ops.gelu, B8), n_sets),
+            "plain_ms": time_ms(lambda i: ops.fused_pruned_ffn_plain(
+                xs[i], wus[i], wds[i], keep, None, ops.gelu, B8), n_sets),
+            "library_ms": None}
+        record("fused_pruned_ffn", "train shape x[520,2048] w_up_r/w_down_r "
+               "[2048,2048] gelu block 8 keep 30/256", dtype, got, ref,
+               timings, (2 * M_T * D_V + 2 * D_V * C) * es,
+               2 * 2 * M_T * D_V * C, False, "grad-kernels")
+        del xs, wus, wds
+
+    # block 128 at a small shape: compact modes and an unsorted keep list
+    # (compact slot k pairs with block keep[k]), outputs NaN-filled
+    for dtype in (torch.float32, torch.bfloat16):
+        nb, M, N, blk128 = 6, 70, 96, 128
+        keep = torch.tensor([4, 0, 3], dtype=torch.int32, device=dev)
+        kb, K = 3, nb * blk128
+        order = ops.inverse_order(keep, nb)
+        s = {"dy": rnd((M, N), dtype), "w": rnd((K, N), dtype),
+             "x": rnd((M, K), dtype), "xc": rnd((M, kb * blk128), dtype),
+             "wo": rnd((N, K), dtype), "dyc": rnd((M, kb * blk128), dtype)}
+        small = [
+            ("pruned_matmul_dx", "block 128 compact_out unsorted keep",
+             lambda s, out: ops.pruned_matmul_dx(
+                 s["dy"], s["w"], keep, kb=kb, block=blk128,
+                 compact_out=True, out=out),
+             lambda s: ops.pruned_matmul_dx_plain(s["dy"], s["w"], keep, kb,
+                                                  blk128, True),
+             (M, kb * blk128)),
+            ("pruned_matmul_dx", "block 128 scattered unsorted keep",
+             lambda s, out: ops.pruned_matmul_dx(
+                 s["dy"], s["w"], order, kb=kb, block=blk128, out=out),
+             lambda s: ops.pruned_matmul_dx_plain(s["dy"], s["w"], order, kb,
+                                                  blk128), (M, K)),
+            ("pruned_matmul_dw", "block 128 x_compact unsorted keep",
+             lambda s, out: ops.pruned_matmul_dw(
+                 s["xc"], s["dy"], order, kb=kb, block=blk128,
+                 x_compact=True, out=out),
+             lambda s: ops.pruned_matmul_dw_plain(s["xc"], s["dy"], order,
+                                                  kb, blk128, True), (K, N)),
+            ("outpruned_matmul", "block 128 unsorted keep",
+             lambda s, out: ops.outpruned_matmul(s["dy"], s["wo"], keep,
+                                                 block=blk128, out=out),
+             lambda s: ops.outpruned_matmul_plain(s["dy"], s["wo"], keep,
+                                                  blk128), (M, kb * blk128)),
+            ("outpruned_matmul_dx", "block 128 unsorted keep",
+             lambda s, out: ops.outpruned_matmul_dx(s["dyc"], s["wo"], keep,
+                                                    block=blk128, out=out),
+             lambda s: ops.outpruned_matmul_dx_plain(s["dyc"], s["wo"], keep,
+                                                     blk128), (M, N)),
+            ("outpruned_matmul_dw", "block 128 unsorted keep",
+             lambda s, out: ops.outpruned_matmul_dw(
+                 s["dy"], s["dyc"], order, kb=kb, block=blk128, out=out),
+             lambda s: ops.outpruned_matmul_dw_plain(s["dy"], s["dyc"], order,
+                                                     kb, blk128), (N, K)),
+        ]
+        for name, case, kernel, plain, shape in small:
+            grad_case(name, case, dtype, lambda s=s: s, kernel, plain, None,
+                      shape, 0, 0, False, timed=False)
+    torch.cuda.synchronize()
+    if failures:
+        raise SystemExit(f"grad kernel checks failed: {failures}")
+    say("grad-kernels", f"all {len(checked)} kernel checks (phases 2 and 6) "
+        "within tolerance")
+
+    # ---------------------------------------------------------------- 7
+    # one controlled step of a two-layer, full-width ViT-1B in f32 at
+    # tp = 4: rank 0 resized (bucket 7) and the source of a 2-block shed;
+    # the kernel path against the plain path on the same inputs
+    from repro_torch.config import TrainConfig
+    from repro_torch.data.pipeline import PatternImageStream, patchify
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.train import run_training
+    from repro_torch.models import vit as vit_lib
+    from repro_torch.optim import adamw
+
+    vit_full = get_config("vit-1b")
+    vit2 = dataclasses.replace(vit_full, num_layers=2, name="vit-1b-2layer")
+    st4 = PlanStatic(block_size=8, tp_size=4, mig_shed=(2,))
+    st4 = dataclasses.replace(
+        st4, scope_blocks=scopes_lib.scope_block_table(vit2, st4))
+    vscopes = scopes_lib.control_scopes(vit2, st4)
+    prng = np.random.default_rng(7)
+    vpri = scopes_lib.plan_pri_arrays(
+        vscopes, {n: prng.permutation(nb * (1 if scopes_lib.SCOPE_LAYOUT[n]
+                                            == "col" else 4))
+                  for n, nb in vscopes.items()}, 4, device=dev)
+    img = next(iter(PatternImageStream(batch_size=8, seed=3)))
+    vbatch = {"patches": torch.from_numpy(patchify(img["images"])).to(dev),
+              "labels": torch.from_numpy(img["labels"]).to(dev)}
+    res = {}
+    for use_kernel in (True, False):
+        m2 = vit_lib.init(torch.Generator(device=dev).manual_seed(2), vit2,
+                          torch.float32, dev)
+        ctx = ControlContext(static=st4, bucket_by_rank=[7, 0, 0, 0],
+                             pri=vpri, use_kernel=use_kernel, mig_src=[0])
+        ops.reset_launch_counts()
+        loss, _ = vit_lib.loss_fn(m2, vit2, vbatch, ctx=ctx)
+        loss.backward()
+        torch.cuda.synchronize()
+        res[use_kernel] = (float(loss.detach()), {n: p.grad.float() for n, p in
+                                         m2.named_parameters()},
+                           ops.launch_counts())
+        del m2
+    (lk, gk, ck), (lp, gp, _) = res[True], res[False]
+    worst, worst_name = 0.0, ""
+    for n, ref in gp.items():
+        rel = float((gk[n] - ref).abs().max()) / max(
+            float(ref.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, n
+    path_kernels = ("block_pruned_matmul", "fused_pruned_ffn",
+                    "pruned_matmul_dx", "pruned_matmul_dw",
+                    "outpruned_matmul", "outpruned_matmul_dx",
+                    "outpruned_matmul_dw")
+    ok = (math.isfinite(lk) and abs(lk - lp) <= 1e-5 * abs(lp)
+          and worst <= F32_TOL and all(ck[k] > 0 for k in path_kernels))
+    say("train-reference", f"vit-1b width, 2 layers, f32, tp 4, buckets "
+        f"[7,0,0,0], source rank 0 shedding 2 blocks: loss kernel {lk:.7f} "
+        f"vs plain {lp:.7f}; {len(gp)} gradients, worst max|err|/max|ref| "
+        f"{worst:.2e} ({worst_name}); launches {ck} "
+        f"{'ok' if ok else 'FAIL'}")
+    del res, gk, gp
+    if not ok:
+        raise SystemExit("train reference check failed")
+
+    # ---------------------------------------------------------------- 8
+    # the port's run_training on full-width ViT-1B (24 layers, f32,
+    # random weights from the seed) at tp = 4 under SEMI. The learning
+    # rate is 1e-4: the trainer's default 3e-3 is the smoke width's, and
+    # at full width Adam's first steps at that rate throw the loss from
+    # 2.4 to ~20 (finite, but no training curve)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n_steps, lr_full = 12, 1e-4
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = run_training("vit-1b", model_cfg=vit_full, steps=n_steps, tp=4,
+                        control_mode="semi", hetero_kind="round_robin",
+                        chi=4.0, mig_blocks=2, use_kernel=True, batch=8,
+                        lr=lr_full, seed=0, quiet=True, device="cuda")
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    train_launches = ops.launch_counts()
+    twalls = np.asarray(hist["wall_s"])
+    resized = sum(1 for b in hist["buckets"] if max(b) > 0)
+    migrating = sum(1 for srcs, _ in hist["mig_shed"] if srcs)
+    problems = []
+    if len(hist["loss"]) != n_steps or not all(
+            math.isfinite(v) for v in hist["loss"]):
+        problems.append(f"a loss is not finite: {hist['loss']}")
+    for k in path_kernels:
+        if train_launches[k] <= 0:
+            problems.append(f"{k} never launched")
+    if resized == 0 or migrating == 0:
+        problems.append(f"{resized} resized and {migrating} migrating steps")
+    say("train", f"vit-1b full width (24 layers, d 2048, d_ff 8192, f32), "
+        f"tp 4 SEMI round_robin chi 4, mig_blocks 2, batch 8, lr "
+        f"{lr_full}: {n_steps} "
+        f"steps in {t_run:.2f} s ({twalls.sum():.2f} s in steps): "
+        f"{8 * n_steps / twalls.sum():.2f} images/s wall; step wall p50 "
+        f"{np.percentile(twalls, 50) * 1e3:.1f} ms, max "
+        f"{twalls.max() * 1e3:.1f} ms; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {resized} "
+        f"steps resized, {migrating} migrating; signatures "
+        f"{sorted(set(hist['signatures']))}; plan builds "
+        f"{hist['plan_compiles']}, hits {hist['plan_cache_hits']}")
+    say("train", f"loss {[round(v, 4) for v in hist['loss']]}")
+    say("train", f"launches {train_launches}")
+    if problems:
+        raise SystemExit(f"train check failed: {problems}")
+    del hist
+
+    # ---------------------------------------------------------------- 9
+    # where a train step's time goes: three steps of the same model under
+    # the run's typical plan, under the profiler
+    torch.cuda.empty_cache()
+    st_run = PlanStatic(block_size=8, tp_size=4, mig_shed=(2,))
+    tstep = steps_lib.build_train_step(
+        vit_full, TrainConfig(learning_rate=lr_full, steps=4), st_run,
+        total_steps=4, use_kernel=True)
+    mfull = vit_lib.init(torch.Generator(device=dev).manual_seed(0), vit_full,
+                         torch.float32, dev)
+    opt = adamw.init(dict(mfull.named_parameters()))
+    run_scopes = scopes_lib.control_scopes(vit_full, st_run)
+    plan = {"bucket_by_rank": np.asarray([7, 0, 0, 0], np.int32),
+            "mig_src": np.asarray([0], np.int32),
+            "pri": scopes_lib.plan_pri_arrays(run_scopes, {}, 4, device=dev)}
+    opt, _ = tstep(mfull, opt, vbatch, plan)            # warm-up
+    torch.cuda.synchronize()
+    n_prof = 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            opt, met = tstep(mfull, opt, vbatch, plan)
+        torch.cuda.synchronize()
+        twall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
+    trows = kernel_times(prof)
+    tdev_ms = sum(r[2] for r in trows) / n_prof
+
+    def train_family(name):
+        for key, fam in (("pruned_gemm", "backward family #8-#12"),
+                         ("bpm_", "block-pruned forward #2 (+ FFN down)"),
+                         ("ffn_hidden", "pruned-FFN hidden stage #3"),
+                         ("reduce_splits", "split reductions")):
+            if key in name:
+                return fam
+        low = name.lower()
+        if any(t in low for t in ("gemm", "gemv", "cutlass", "nvjet",
+                                  "cublas", "sm90", "xmma")):
+            return "library matmul (dense ranks, attention, head)"
+        if "foreach" in low or "multi_tensor" in low:
+            return "AdamW (foreach)"
+        return "elementwise / indexing / copies / other"
+    tfams = {}
+    for name, calls, ms in trows:
+        f = tfams.setdefault(train_family(name), [0, 0.0])
+        f[0] += calls
+        f[1] += ms
+    say("train-profile", f"full-width step, plan [7,0,0,0] + source 0: wall "
+        f"{twall_ms:.1f} ms/step, device kernels {tdev_ms:.1f} ms/step, "
+        f"device busy {tdev_ms / twall_ms:.1%} (idle "
+        f"{1 - tdev_ms / twall_ms:.1%})")
+    for fam, (calls, ms) in sorted(tfams.items(), key=lambda kv: -kv[1][1]):
+        say("train-profile", f"  {fam}: {ms / n_prof:.2f} ms/step, "
+            f"{calls / n_prof:.0f} kernels/step")
+    for name, calls, ms in trows[:10]:
+        say("train-profile", f"  top: {ms / n_prof:.2f} ms/step, "
+            f"{calls / n_prof:.0f}/step  {name[:90]}")
+    del mfull, opt
+
     # ---------------------------------------------------------------- out
+    # launches: the serving kernels from the serve run (phase 4), the
+    # backward family from the train run (phase 8)
     kernels = []
     for name in ("fused_decode_attention", "block_pruned_matmul",
-                 "fused_pruned_ffn"):
+                 "fused_pruned_ffn", "pruned_matmul_dx", "pruned_matmul_dw",
+                 "outpruned_matmul", "outpruned_matmul_dx",
+                 "outpruned_matmul_dw"):
         k = per_kernel[name]
+        n_launch = (launches if name in serve_kernels else
+                    train_launches)[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],
-                        "launches": int(launches[name]),
+                        "launches": int(n_launch),
                         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                         "bound_by": k["bound_by"],

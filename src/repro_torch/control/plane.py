@@ -17,17 +17,21 @@ Responsibilities, as in the reference:
 * **telemetry** — measurement capture, online estimation, and replayable
   trace output.
 
-The reference's ragged shard geometry and checkpoint round-trip, and its
-``controller_blocks="global"`` / unclamped-shed conventions (the
-trainer's), come with the training slice; this plane plans in per-rank
-shard blocks and clamps projected sheds, as the reference's serve engine
-asks it to.
+``controller_blocks`` picks the block-count convention the controller
+reasons in: ``"local"`` (per-rank shard blocks, the paper's L_i — the
+serve engine's) or ``"global"`` (whole-scope blocks — the trainer's
+historical convention, which its pinned trajectories depend on).
+``clamp_sheds`` clamps projected shed counts to the real FFN shard
+(source keeps >= 1 block), as the serve engine asks; the trainer keeps
+the loud ``ValueError`` of its ``mig_blocks`` cap instead. The
+reference's ragged shard geometry and checkpoint round-trip come with
+later slices.
 
-Plan tensors: ``bucket_by_rank`` stays on the host (the layers read the
-bucket as a Python integer to pick a branch, which would cost a device
-sync if it lived on the card); the priority lists live on the plane's
-device, where the kernels read their keep ids. The reference's
-``mig_src`` vector has no reader before migration (the training slice).
+Plan tensors: ``bucket_by_rank`` and ``mig_src`` stay on the host (the
+layers read each rank's bucket and each slot's source rank as Python
+integers to pick their branches, which would cost a device sync if they
+lived on the card); the priority lists live on the plane's device, where
+the kernels read their keep ids.
 """
 from __future__ import annotations
 
@@ -105,6 +109,8 @@ class ControlPlane:
                  builder: Callable[[Optional[PlanStatic]], Any],
                  it_model: hetero_lib.IterationModel,
                  device="cpu", sim_ranks: int = 0,
+                 controller_blocks: str = "local",
+                 clamp_sheds: bool = True,
                  hetero_kind: str = "none", chi: float = 2.0,
                  period: int = 10, contention_p: float = 0.15,
                  seed: int = 0, trace_in: Optional[str] = None,
@@ -117,7 +123,11 @@ class ControlPlane:
         self.device = torch.device(device)
         self.it_model = it_model
         self.sim_ranks = sim_ranks or tp
+        self.clamp_sheds = clamp_sheds
         self.measure_noise = measure_noise
+        if controller_blocks not in ("local", "global"):
+            raise ValueError(f"controller_blocks must be 'local' or "
+                             f"'global', got {controller_blocks!r}")
 
         # -- plan skeleton (real group scale) ------------------------------
         static = None
@@ -139,7 +149,6 @@ class ControlPlane:
         self.base = self.cache.get(static)
 
         # -- controller at the simulated group scale -----------------------
-        # it reasons in per-rank shard blocks (the paper's L_i)
         if static is not None and self.sim_ranks != tp:
             sim_static = dataclasses.replace(static, tp_size=self.sim_ranks)
             sim_scopes = scopes_lib.control_scopes(model_cfg, sim_static)
@@ -148,8 +157,10 @@ class ControlPlane:
         self.sim_nb = next(iter(sim_scopes.values()), 1)
         self.controller: Optional[SemiController] = None
         if wc.enabled and static is not None:
+            n_blocks = (self.sim_nb * self.sim_ranks
+                        if controller_blocks == "global" else self.sim_nb)
             self.controller = SemiController(wc, self.sim_ranks, it_model,
-                                             self.sim_nb, seed=seed)
+                                             n_blocks, seed=seed)
 
         # -- χ schedule + telemetry ----------------------------------------
         self.schedule = make_schedule(
@@ -160,7 +171,7 @@ class ControlPlane:
         self.estimator = (StragglerEstimator(
             it_model, self.sim_ranks, EstimatorConfig.from_control(wc))
             if measured else None)
-        self.timer = RankTimer()
+        self.timer = RankTimer(tp=tp, interval=wc.measure_interval)
         self.writer = (TraceWriter(
             trace_out, self.sim_ranks,
             matmul_time=it_model.matmul_time,
@@ -203,7 +214,8 @@ class ControlPlane:
         that actually EXECUTES.
         """
         proj = project_plan(plan, sim_ranks=self.sim_ranks, tp=self.tp,
-                            real_nb=self.scopes.get("ffn", 0))
+                            real_nb=(self.scopes.get("ffn", 0)
+                                     if self.clamp_sheds else 0))
         st_iter = dataclasses.replace(self.static, mig_shed=proj.mig_sheds,
                                       mig_blocks=0)
         step_fn = self.cache.get(st_iter)
@@ -211,9 +223,13 @@ class ControlPlane:
                                           plan.dynamic.pri_lists, self.tp,
                                           device=self.device)
                if plan.dynamic.pri_lists else self.identity_pri)
+        # one source rank per slot of the executed signature (-1 = idle)
+        srcs = np.full((max(st_iter.num_sources, 1),), -1, np.int32)
+        k = min(len(proj.mig_srcs), srcs.shape[0])
+        srcs[:k] = np.asarray(proj.mig_srcs[:k], np.int32)
         arrays = {"bucket_by_rank": torch.as_tensor(
                       np.asarray(proj.bucket_by_rank, np.int32)),
-                  "pri": pri}
+                  "mig_src": srcs, "pri": pri}
         return step_fn, arrays, proj
 
     def work_frac(self, plan: WorkloadPlan) -> np.ndarray:

@@ -1,15 +1,24 @@
-"""ZERO-resizing (paper Sec. III), forward only (port of
-``repro.core.resizing``): temporarily resize a TP linear's matrices by
-pruning contraction-dimension blocks.
+"""ZERO-resizing (paper Sec. III), port of ``repro.core.resizing``:
+temporarily resize a TP linear's matrices by pruning contraction-
+dimension blocks, with lineage-correct zero imputation of the missing
+gradient rows/columns.
+
+As in the reference, the paper's lineage table + imputation machinery
+falls out of autodiff: :func:`resized_matmul` is gather(keep blocks) →
+matmul, and the VJP of ``index_select`` scatters the gradient to exactly
+the kept positions and ZEROS to the pruned ones — Zero-imputation with a
+correctly matched lineage, by construction. The kernel path
+(``use_kernel``) gets the same zeros from its backward kernels, which
+write the pruned blocks in-kernel. The ``average`` / ``same`` policies
+of Fig. 3 are explicit gradient transforms (:func:`impute_gradients`).
 
 The reference picks the γ-bucket branch with ``lax.switch`` over
-statically shaped pruned matmuls. Here, at ``tp == 1``, the bucket is one
-host integer and the branch is a plain Python pick. Gradients (and the
-imputation policies) come with the training slice.
+statically shaped pruned matmuls; here the bucket is a host integer and
+the branch a plain Python pick.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -37,6 +46,16 @@ def gather_rows(w: torch.Tensor, keep_idx: torch.Tensor,
     wb = w.reshape(K // block, block, N)
     wk = wb.index_select(0, keep_idx.long())
     return wk.reshape(keep_idx.shape[0] * block, N)
+
+
+def scatter_cols(xk: torch.Tensor, keep_idx: torch.Tensor, block: int,
+                 K: int) -> torch.Tensor:
+    """Inverse of :func:`gather_cols` with zeros at the pruned blocks
+    (Zero imputation): [..., kb*block] -> [..., K]."""
+    *lead, Kk = xk.shape
+    out = xk.new_zeros((*lead, K // block, block))
+    out[..., keep_idx.long(), :] = xk.reshape(*lead, Kk // block, block)
+    return out.reshape(*lead, K)
 
 
 def keep_mask(keep_idx: torch.Tensor, num_blocks: int,
@@ -111,3 +130,54 @@ def switched_matmul(x: torch.Tensor, w: torch.Tensor,
     keep = keep_for(kc) if keep_for is not None else sorted_prefix(pri_list,
                                                                    kc)
     return resized_matmul(x, w, keep, block=block, use_kernel=use_kernel)
+
+
+# ---------------------------------------------------------------------------
+# Imputation policies (Fig. 3: Zero / Average / Same)
+# ---------------------------------------------------------------------------
+
+
+def impute_rows(grad: torch.Tensor, kept: torch.Tensor, mode: str,
+                prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fill the pruned (not-kept) rows of a [K, N] gradient.
+
+    zero    — leave zeros (the paper's final choice; free).
+    average — mean over the kept rows of the current iteration.
+    same    — the value from the previous iteration's gradient (``prev``).
+    """
+    if mode == "zero":
+        return grad
+    kept_f = kept.to(grad.dtype)[:, None]
+    if mode == "average":
+        denom = torch.clamp(kept_f.sum(), min=1.0)
+        avg = (grad * kept_f).sum(dim=0, keepdim=True) / denom
+        return grad * kept_f + avg * (1.0 - kept_f)
+    if mode == "same":
+        if prev is None:
+            return grad
+        return grad * kept_f + prev * (1.0 - kept_f)
+    raise ValueError(f"unknown imputation mode {mode!r}")
+
+
+def impute_gradients(grads: Dict[str, torch.Tensor],
+                     keep_masks: Dict[str, Optional[torch.Tensor]],
+                     mode: str,
+                     prev_grads: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """Apply :func:`impute_rows` across named weight gradients.
+
+    ``keep_masks`` maps a name to a bool [K] mask of kept contraction rows,
+    or to None (that weight is left untouched, as is any gradient that is
+    not 2-D). ``prev_grads`` (for ``same``) is keyed like ``grads``.
+    """
+    if mode == "zero":
+        return grads
+    out = {}
+    for name, g in grads.items():
+        m = keep_masks.get(name)
+        if m is None or g.ndim != 2:
+            out[name] = g
+        else:
+            prev = prev_grads.get(name) if prev_grads is not None else None
+            out[name] = impute_rows(g, m, mode, prev)
+    return out

@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("gqa_decode_attn.cu", "block_pruned_matmul.cu",
-           "fused_pruned_ffn.cu")
+           "fused_pruned_ffn.cu", "pruned_grad.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -42,6 +42,15 @@ SIGNATURES = {
                                   _I, _I, _I, _P),
     "repro_pruned_ffn_hidden": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _P),
+    "repro_pruned_matmul_dx": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _P),
+    "repro_pruned_matmul_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _P),
+    "repro_outpruned_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "repro_outpruned_matmul_dx": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _P),
+    "repro_outpruned_matmul_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _P),
 }
 
 

@@ -1,5 +1,5 @@
 """Public wrappers of the port's CUDA kernels, with their plain versions
-(port of ``repro.kernels.ops``, forward only).
+(port of ``repro.kernels.ops``).
 
 Each wrapper validates its arguments with the reference's readable
 errors, then dispatches on where its tensors lie:
@@ -22,10 +22,18 @@ block_pruned_matmul       csrc/block_pruned_matmul.cu     kernels/pruned_matmul.
 fused_pruned_ffn          csrc/fused_pruned_ffn.cu (+ the kernels/pruned_matmul.py:fused_ffn_2d
                           block-pruned product)
 fused_decode_attention    csrc/gqa_decode_attn.cu         kernels/decode_attn.py:gqa_decode_attn_2d
+pruned_matmul_dx          csrc/pruned_grad.cu             kernels/pruned_matmul.py:pruned_matmul_dx_2d
+pruned_matmul_dw          csrc/pruned_grad.cu             kernels/pruned_matmul.py:pruned_matmul_dw_2d
+outpruned_matmul          csrc/pruned_grad.cu             kernels/pruned_matmul.py:outpruned_matmul_2d
+outpruned_matmul_dx       csrc/pruned_grad.cu             kernels/pruned_matmul.py:outpruned_matmul_dx_2d
+outpruned_matmul_dw       csrc/pruned_grad.cu             kernels/pruned_matmul.py:outpruned_matmul_dw_2d
 ========================  ==============================  ==========================================
 
-None of these defines a gradient: this slice serves, and the backward
-kernels of the pruned family come with the training slice.
+``block_pruned_matmul`` and ``fused_pruned_ffn`` are
+``torch.autograd.Function``s whose backward runs the last five kernels,
+as the reference's custom VJPs run its backward Pallas kernels (on CPU
+tensors, their plain versions). The decode attention defines no
+gradient.
 """
 from __future__ import annotations
 
@@ -138,7 +146,278 @@ def _stream(device) -> int:
 
 
 # ---------------------------------------------------------------------------
-# block-pruned matmul (contraction pruning)
+# the backward family (kernels #8-#12 of the TPU package)
+# ---------------------------------------------------------------------------
+
+
+def inverse_order(keep_idx: torch.Tensor, nb: int) -> torch.Tensor:
+    """[nb] int32 permutation concat(keep_idx, pruned ids) for the
+    backward kernels' inverse index maps (the reference's
+    ``ops._inverse_order``). The keep prefix is ``keep_idx`` ITSELF, in
+    the caller's order, sorted or not: compact slot k maps to block
+    ``keep_idx[k]``. Built on the device with a mask and a stable
+    argsort, so it costs no host sync."""
+    keep = keep_idx.to(torch.int32)
+    is_kept = torch.zeros((nb,), dtype=torch.bool, device=keep.device)
+    is_kept[keep.long()] = True
+    pruned = torch.argsort(is_kept.to(torch.int32), stable=True)
+    return torch.cat([keep, pruned[: nb - keep.shape[0]].to(torch.int32)])
+
+
+def _check_2d(what: str, **tensors) -> None:
+    for name, t in tensors.items():
+        if t.ndim != 2:
+            raise ValueError(f"{what}: {name} must be 2-D, got shape "
+                             f"{tuple(t.shape)}")
+
+
+def _check_slots(what: str, idx: torch.Tensor, kb: int, nb: int) -> None:
+    if idx.ndim != 1 or idx.dtype.is_floating_point \
+            or idx.dtype == torch.bool:
+        raise ValueError(f"{what}: the index vector must be 1-D integer "
+                         f"block ids, got {idx.dtype} {tuple(idx.shape)}")
+    if not 1 <= kb <= idx.shape[0] or idx.shape[0] > nb:
+        raise ValueError(
+            f"{what}: kb={kb} kept slots with an index vector of "
+            f"{idx.shape[0]} over {nb} blocks (need 1 <= kb <= len <= nb)")
+
+
+def _out(out, shape, like):
+    """The caller's output buffer (checked), or a fresh torch.empty: the
+    kernels write every element, zeros included."""
+    if out is None:
+        return torch.empty(shape, dtype=like.dtype, device=like.device)
+    if tuple(out.shape) != tuple(shape) or out.dtype != like.dtype \
+            or out.device != like.device or not out.is_contiguous():
+        raise ValueError(
+            f"out must be a contiguous {like.dtype} tensor of shape "
+            f"{tuple(shape)} on {like.device}, got {out.dtype} "
+            f"{tuple(out.shape)} on {out.device}")
+    return out
+
+
+def _scatter_blocks(compact: torch.Tensor, ids: torch.Tensor, nb: int,
+                    block: int, dim: int) -> torch.Tensor:
+    """Place the kb compact blocks of ``compact`` (along ``dim``, 0 or 1)
+    at block positions ``ids`` of an nb-block zero tensor."""
+    if dim == 0:
+        out = compact.new_zeros((nb, block, compact.shape[1]))
+        out[ids] = compact.reshape(-1, block, compact.shape[1])
+        return out.reshape(nb * block, compact.shape[1])
+    out = compact.new_zeros((compact.shape[0], nb, block))
+    out[:, ids] = compact.reshape(compact.shape[0], -1, block)
+    return out.reshape(compact.shape[0], nb * block)
+
+
+def pruned_matmul_dx_plain(dy, w, order, kb: int, block: int,
+                           compact_out: bool = False) -> torch.Tensor:
+    """dX[:, order[k]] = dy @ w[order[k]]^T for k < kb, zeros at the other
+    slots of ``order``; compact_out returns the [M, kb*block] kept part."""
+    N = w.shape[1]
+    ids = order[:kb].long()
+    wk = w.reshape(-1, block, N)[ids].reshape(kb * block, N)
+    dxk = dy.float() @ wk.float().t()
+    if compact_out:
+        return dxk.to(dy.dtype)
+    return _scatter_blocks(dxk, ids, order.shape[0], block, 1).to(dy.dtype)
+
+
+def pruned_matmul_dx(dy: torch.Tensor, w: torch.Tensor, order: torch.Tensor,
+                     *, kb: int, block: int, compact_out: bool = False,
+                     out=None) -> torch.Tensor:
+    """dX of the block-pruned product (TPU kernel
+    ``pruned_matmul_dx_2d``): dy [M, N], w [nb*block, N], order [nb]
+    (only its keep prefix [kb] with ``compact_out``). Returns [M, nb*block]
+    with zeros at the pruned blocks, or [M, kb*block] compact."""
+    what = "pruned_matmul_dx"
+    _check_2d(what, dy=dy, w=w)
+    if dy.shape[1] != w.shape[1] or w.shape[0] % block:
+        raise ValueError(f"{what}: dy {tuple(dy.shape)} / w "
+                         f"{tuple(w.shape)} with block={block}")
+    nb = w.shape[0] // block
+    _check_slots(what, order, kb, nb)
+    if not compact_out and order.shape[0] != nb:
+        raise ValueError(f"{what}: order has {order.shape[0]} entries, w "
+                         f"{nb} blocks")
+    if not dy.is_cuda:
+        return pruned_matmul_dx_plain(dy, w, order, kb, block, compact_out)
+    dt, idx = _kernel_args(what, (dy, w), order)
+    M, N = dy.shape
+    y = _out(out, (M, (kb if compact_out else nb) * block), dy)
+    err = _build.library().lib.repro_pruned_matmul_dx(
+        dy.contiguous().data_ptr(), w.contiguous().data_ptr(),
+        idx.data_ptr(), y.data_ptr(), M, N, nb, kb, block, int(compact_out),
+        dt, _stream(dy.device))
+    _build.check(err, what)
+    pruned_matmul_dx.launches += 1
+    return y
+
+
+pruned_matmul_dx.launches = 0
+
+
+def pruned_matmul_dw_plain(x, dy, order, kb: int, block: int,
+                           x_compact: bool = False) -> torch.Tensor:
+    """dW[order[k]] = x[:, order[k]]^T @ dy for k < kb, zeros at the
+    pruned rows; x_compact reads x as [M, kb*block] (slot k = block k)."""
+    M = dy.shape[0]
+    ids = order[:kb].long()
+    if x_compact:
+        xk = x[:, : kb * block]
+    else:
+        xk = x.reshape(M, -1, block)[:, ids].reshape(M, kb * block)
+    dwk = xk.float().t() @ dy.float()
+    return _scatter_blocks(dwk, ids, order.shape[0], block, 0).to(dy.dtype)
+
+
+def pruned_matmul_dw(x: torch.Tensor, dy: torch.Tensor, order: torch.Tensor,
+                     *, kb: int, block: int, x_compact: bool = False,
+                     out=None) -> torch.Tensor:
+    """dW of the block-pruned product (TPU kernel ``pruned_matmul_dw_2d``):
+    x [M, nb*block] (or [M, kb*block] with ``x_compact``), dy [M, N],
+    order [nb]. Returns [nb*block, N] with zeros at the pruned rows."""
+    what = "pruned_matmul_dw"
+    _check_2d(what, x=x, dy=dy)
+    nb = order.shape[0]
+    _check_slots(what, order, kb, nb)
+    if x.shape[0] != dy.shape[0] \
+            or x.shape[1] != (kb if x_compact else nb) * block:
+        raise ValueError(f"{what}: x {tuple(x.shape)} / dy "
+                         f"{tuple(dy.shape)} with {nb} blocks of {block}, "
+                         f"kb={kb}, x_compact={x_compact}")
+    if not dy.is_cuda:
+        return pruned_matmul_dw_plain(x, dy, order, kb, block, x_compact)
+    dt, idx = _kernel_args(what, (x, dy), order)
+    M, N = dy.shape
+    y = _out(out, (nb * block, N), dy)
+    err = _build.library().lib.repro_pruned_matmul_dw(
+        x.contiguous().data_ptr(), dy.contiguous().data_ptr(),
+        idx.data_ptr(), y.data_ptr(), M, N, nb, kb, block, int(x_compact),
+        dt, _stream(dy.device))
+    _build.check(err, what)
+    pruned_matmul_dw.launches += 1
+    return y
+
+
+pruned_matmul_dw.launches = 0
+
+
+def _cols(w: torch.Tensor, keep: torch.Tensor, block: int) -> torch.Tensor:
+    """The kept column blocks of w [K, nb*block] -> [K, kb*block]."""
+    K = w.shape[0]
+    return w.reshape(K, -1, block)[:, keep.long()].reshape(
+        K, keep.shape[0] * block)
+
+
+def outpruned_matmul_plain(x, w, keep_idx, block: int) -> torch.Tensor:
+    """Compact yc[:, k-th block] = x @ w[:, keep_idx[k]]."""
+    return (x.float() @ _cols(w, keep_idx, block).float()).to(x.dtype)
+
+
+def outpruned_matmul(x: torch.Tensor, w: torch.Tensor, keep_idx: torch.Tensor,
+                     *, block: int, out=None) -> torch.Tensor:
+    """The out-pruned product (TPU kernel ``outpruned_matmul_2d``): x [M, K]
+    @ w[:, keep] for w [K, nb*block] -> compact [M, kb*block]."""
+    what = "outpruned_matmul"
+    _check_2d(what, x=x, w=w)
+    if x.shape[1] != w.shape[0] or w.shape[1] % block:
+        raise ValueError(f"{what}: x {tuple(x.shape)} @ w {tuple(w.shape)} "
+                         f"with block={block}")
+    kb = keep_idx.shape[0]
+    _check_slots(what, keep_idx, kb, w.shape[1] // block)
+    if not x.is_cuda:
+        return outpruned_matmul_plain(x, w, keep_idx, block)
+    dt, idx = _kernel_args(what, (x, w), keep_idx)
+    (M, K), H = x.shape, w.shape[1]
+    y = _out(out, (M, kb * block), x)
+    err = _build.library().lib.repro_outpruned_matmul(
+        x.contiguous().data_ptr(), w.contiguous().data_ptr(), idx.data_ptr(),
+        y.data_ptr(), M, K, H, kb, block, dt, _stream(x.device))
+    _build.check(err, what)
+    outpruned_matmul.launches += 1
+    return y
+
+
+outpruned_matmul.launches = 0
+
+
+def outpruned_matmul_dx_plain(dyc, w, keep_idx, block: int) -> torch.Tensor:
+    """dx = dyc @ w[:, keep]^T (dense output)."""
+    return (dyc.float() @ _cols(w, keep_idx, block).float().t()).to(dyc.dtype)
+
+
+def outpruned_matmul_dx(dyc: torch.Tensor, w: torch.Tensor,
+                        keep_idx: torch.Tensor, *, block: int,
+                        out=None) -> torch.Tensor:
+    """dx of the out-pruned product (TPU kernel
+    ``outpruned_matmul_dx_2d``): dyc [M, kb*block], w [K, nb*block] ->
+    [M, K]; the contraction runs over the kept blocks only."""
+    what = "outpruned_matmul_dx"
+    _check_2d(what, dyc=dyc, w=w)
+    kb = keep_idx.shape[0]
+    if dyc.shape[1] != kb * block or w.shape[1] % block:
+        raise ValueError(f"{what}: dyc {tuple(dyc.shape)} / w "
+                         f"{tuple(w.shape)} with {kb} kept blocks of {block}")
+    _check_slots(what, keep_idx, kb, w.shape[1] // block)
+    if not dyc.is_cuda:
+        return outpruned_matmul_dx_plain(dyc, w, keep_idx, block)
+    dt, idx = _kernel_args(what, (dyc, w), keep_idx)
+    M, (K, H) = dyc.shape[0], w.shape
+    y = _out(out, (M, K), dyc)
+    err = _build.library().lib.repro_outpruned_matmul_dx(
+        dyc.contiguous().data_ptr(), w.contiguous().data_ptr(),
+        idx.data_ptr(), y.data_ptr(), M, K, H, kb, block, dt,
+        _stream(dyc.device))
+    _build.check(err, what)
+    outpruned_matmul_dx.launches += 1
+    return y
+
+
+outpruned_matmul_dx.launches = 0
+
+
+def outpruned_matmul_dw_plain(x, dyc, order, kb: int,
+                              block: int) -> torch.Tensor:
+    """dW[:, order[k]] = x^T @ dyc[:, k-th block] for k < kb, zeros at
+    the pruned column blocks."""
+    dwk = x.float().t() @ dyc.float()
+    return _scatter_blocks(dwk, order[:kb].long(), order.shape[0], block,
+                           1).to(dyc.dtype)
+
+
+def outpruned_matmul_dw(x: torch.Tensor, dyc: torch.Tensor,
+                        order: torch.Tensor, *, kb: int, block: int,
+                        out=None) -> torch.Tensor:
+    """dW of the out-pruned product (TPU kernel
+    ``outpruned_matmul_dw_2d``): x [M, K], dyc [M, kb*block], order [nb]
+    -> [K, nb*block] with zeros at the pruned column blocks."""
+    what = "outpruned_matmul_dw"
+    _check_2d(what, x=x, dyc=dyc)
+    nb = order.shape[0]
+    _check_slots(what, order, kb, nb)
+    if x.shape[0] != dyc.shape[0] or dyc.shape[1] != kb * block:
+        raise ValueError(f"{what}: x {tuple(x.shape)} / dyc "
+                         f"{tuple(dyc.shape)} with {kb} kept blocks of "
+                         f"{block}")
+    if not dyc.is_cuda:
+        return outpruned_matmul_dw_plain(x, dyc, order, kb, block)
+    dt, idx = _kernel_args(what, (x, dyc), order)
+    M, K = x.shape
+    y = _out(out, (K, nb * block), dyc)
+    err = _build.library().lib.repro_outpruned_matmul_dw(
+        x.contiguous().data_ptr(), dyc.contiguous().data_ptr(),
+        idx.data_ptr(), y.data_ptr(), M, K, nb, kb, block, dt,
+        _stream(dyc.device))
+    _build.check(err, what)
+    outpruned_matmul_dw.launches += 1
+    return y
+
+
+outpruned_matmul_dw.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# block-pruned matmul (contraction pruning), with its kernel-level VJP
 # ---------------------------------------------------------------------------
 
 
@@ -174,23 +453,50 @@ def _launch_block_pruned(x2d, w, keep, block, dt, *, x_compact=False,
     return y
 
 
-def block_pruned_matmul(x: torch.Tensor, w: torch.Tensor,
-                        keep_idx: torch.Tensor,
-                        block: int = 128) -> torch.Tensor:
-    """y = x[..., keep] @ w[keep, :].
+class _BlockPrunedMatmul(torch.autograd.Function):
+    """Forward: the block-pruned kernel (#2). Backward (reference
+    ``ops._bwd``): dX through ``pruned_matmul_dx`` (#8) and dW through
+    ``pruned_matmul_dw`` (#9), both zero at the pruned blocks."""
 
-    x: [..., K]; w: [K, N]; keep_idx: [kb] integer block ids (sorted).
-    """
-    *lead, K = x.shape
-    _validate(K, w.shape[0], keep_idx, block, "block_pruned_matmul")
-    x2d = x.reshape(-1, K)
-    if x.is_cuda:
+    @staticmethod
+    def forward(ctx, x2d, w, keep_idx, block):
+        ctx.save_for_backward(x2d, w, keep_idx)
+        ctx.block = block
+        if not x2d.is_cuda:
+            return block_pruned_matmul_plain(x2d, w, keep_idx, block)
         dt, keep = _kernel_args("block_pruned_matmul", (x2d, w), keep_idx)
         y = _launch_block_pruned(x2d.contiguous(), w.contiguous(), keep,
                                  block, dt)
         block_pruned_matmul.launches += 1
-    else:
-        y = block_pruned_matmul_plain(x2d, w, keep_idx, block)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2d, w, keep_idx = ctx.saved_tensors
+        block = ctx.block
+        kb = keep_idx.shape[0]
+        order = inverse_order(keep_idx, x2d.shape[1] // block)
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = pruned_matmul_dx(dy, w, order, kb=kb,
+                                  block=block).to(x2d.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = pruned_matmul_dw(x2d, dy, order, kb=kb,
+                                  block=block).to(w.dtype)
+        return dx, dw, None, None
+
+
+def block_pruned_matmul(x: torch.Tensor, w: torch.Tensor,
+                        keep_idx: torch.Tensor,
+                        block: int = 128) -> torch.Tensor:
+    """y = x[..., keep] @ w[keep, :], differentiable in x and w.
+
+    x: [..., K]; w: [K, N]; keep_idx: [kb] integer block ids.
+    """
+    *lead, K = x.shape
+    _validate(K, w.shape[0], keep_idx, block, "block_pruned_matmul")
+    y = _BlockPrunedMatmul.apply(x.reshape(-1, K), w, keep_idx, block)
     return y.reshape(*lead, w.shape[1])
 
 
@@ -198,7 +504,7 @@ block_pruned_matmul.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# pruned FFN pair
+# pruned FFN pair, with its kernel-level VJP
 # ---------------------------------------------------------------------------
 
 
@@ -224,51 +530,6 @@ def fused_pruned_ffn_plain(x2d, w_up, w_down, keep_idx, w_gate, act_fn,
     return (h.to(w_down.dtype).float() @ wd.float()).to(x2d.dtype)
 
 
-def fused_pruned_ffn(x: torch.Tensor, w_up: torch.Tensor,
-                     w_down: torch.Tensor, keep_idx: torch.Tensor,
-                     w_gate=None, act_fn=None,
-                     block: int = 128) -> torch.Tensor:
-    """Controlled FFN pair y = act(x @ Wup[:, keep] [, · gate]) @
-    Wdown[keep, :].
-
-    x: [..., K]; w_up/w_gate: [K, H]; w_down: [H, d_out]; keep_idx: [kb]
-    kept H-block ids. On the card: the compact hidden stage
-    (``csrc/fused_pruned_ffn.cu``) then the block-pruned down product;
-    ``act_fn`` must be :func:`silu` or :func:`gelu`.
-    """
-    *lead, K = x.shape
-    _validate(w_up.shape[1], w_down.shape[0], keep_idx, block,
-              "fused_pruned_ffn")
-    if w_up.shape[0] != K or (w_gate is not None
-                              and w_gate.shape != w_up.shape):
-        raise ValueError(
-            f"fused_pruned_ffn: x has K={K} but w_up is "
-            f"{tuple(w_up.shape)}"
-            + ("" if w_gate is None else f", w_gate {tuple(w_gate.shape)}"))
-    if act_fn is None:
-        raise ValueError("fused_pruned_ffn: act_fn is required")
-    x2d = x.reshape(-1, K)
-    if x.is_cuda:
-        if act_fn not in ACT_CODES:
-            raise ValueError(
-                f"fused_pruned_ffn: activation {act_fn!r} has no kernel "
-                "code; use repro_torch.kernels.ops.silu or .gelu")
-        ops_ = (x2d, w_up, w_down) + ((w_gate,) if w_gate is not None else ())
-        dt, keep = _kernel_args("fused_pruned_ffn", ops_, keep_idx)
-        y = _launch_pruned_ffn(x2d.contiguous(), w_up.contiguous(),
-                               w_down.contiguous(),
-                               None if w_gate is None else w_gate.contiguous(),
-                               keep, ACT_CODES[act_fn], block, dt)
-        fused_pruned_ffn.launches += 1
-    else:
-        y = fused_pruned_ffn_plain(x2d, w_up, w_down, keep_idx, w_gate,
-                                   act_fn, block)
-    return y.reshape(*lead, w_down.shape[1])
-
-
-fused_pruned_ffn.launches = 0
-
-
 def _launch_pruned_ffn(x2d, w_up, w_down, w_gate, keep, act, block, dt):
     M, K = x2d.shape
     H = w_up.shape[1]
@@ -289,6 +550,102 @@ def _launch_pruned_ffn(x2d, w_up, w_down, w_gate, keep, act, block, dt):
     _build.check(err, "fused_pruned_ffn (hidden)")
     return _launch_block_pruned(h, w_down, keep, block, dt, x_compact=True,
                                 K=w_down.shape[0])
+
+
+class _FusedPrunedFFN(torch.autograd.Function):
+    """Forward: the compact hidden stage and the block-pruned down
+    product (#3). Backward (reference ``ops._ffn_bwd``): recompute the
+    compact pre-activations with ``outpruned_matmul`` (#10) instead of
+    keeping the hidden; dWdown through ``pruned_matmul_dw`` on the compact
+    hidden (#9, x_compact); the compact dh through ``pruned_matmul_dx``
+    (#8, compact_out); the activation's VJP elementwise; dWup (and
+    dWgate) through ``outpruned_matmul_dw`` (#12); dx through
+    ``outpruned_matmul_dx`` (#11)."""
+
+    @staticmethod
+    def forward(ctx, x2d, w_up, w_down, keep_idx, w_gate, act_fn, block):
+        ctx.save_for_backward(x2d, w_up, w_down, keep_idx, w_gate)
+        ctx.act_fn, ctx.block = act_fn, block
+        if not x2d.is_cuda:
+            return fused_pruned_ffn_plain(x2d, w_up, w_down, keep_idx,
+                                          w_gate, act_fn, block)
+        ops_ = (x2d, w_up, w_down) + ((w_gate,) if w_gate is not None else ())
+        dt, keep = _kernel_args("fused_pruned_ffn", ops_, keep_idx)
+        y = _launch_pruned_ffn(x2d.contiguous(), w_up.contiguous(),
+                               w_down.contiguous(),
+                               None if w_gate is None else w_gate.contiguous(),
+                               keep, ACT_CODES[act_fn], block, dt)
+        fused_pruned_ffn.launches += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2d, w_up, w_down, keep_idx, w_gate = ctx.saved_tensors
+        act_fn, block = ctx.act_fn, ctx.block
+        kb = keep_idx.shape[0]
+        order = inverse_order(keep_idx, w_up.shape[1] // block)
+        dy = dy.contiguous()
+        pre_up = outpruned_matmul(x2d, w_up, keep_idx, block=block)
+        pre_g = (outpruned_matmul(x2d, w_gate, keep_idx, block=block)
+                 if w_gate is not None else None)
+        with torch.enable_grad():
+            pu = pre_up.detach().requires_grad_()
+            pg = pre_g.detach().requires_grad_() if pre_g is not None \
+                else None
+            h = act_fn(pg) * pu if pg is not None else act_fn(pu)
+        dw_down = pruned_matmul_dw(h.detach().to(dy.dtype), dy, order, kb=kb,
+                                   block=block, x_compact=True)
+        dh = pruned_matmul_dx(dy, w_down, keep_idx, kb=kb, block=block,
+                              compact_out=True)
+        leaves = (pu, pg) if pg is not None else (pu,)
+        dpre = torch.autograd.grad(h, leaves, dh.to(h.dtype))
+        dpre_up = dpre[0].to(x2d.dtype).contiguous()
+        dw_up = outpruned_matmul_dw(x2d, dpre_up, order, kb=kb, block=block)
+        dx = outpruned_matmul_dx(dpre_up, w_up, keep_idx, block=block)
+        dw_gate = None
+        if pg is not None:
+            dpre_g = dpre[1].to(x2d.dtype).contiguous()
+            dw_gate = outpruned_matmul_dw(x2d, dpre_g, order, kb=kb,
+                                          block=block).to(w_gate.dtype)
+            dx = dx + outpruned_matmul_dx(dpre_g, w_gate, keep_idx,
+                                          block=block)
+        return (dx.to(x2d.dtype), dw_up.to(w_up.dtype),
+                dw_down.to(w_down.dtype), None, dw_gate, None, None)
+
+
+def fused_pruned_ffn(x: torch.Tensor, w_up: torch.Tensor,
+                     w_down: torch.Tensor, keep_idx: torch.Tensor,
+                     w_gate=None, act_fn=None,
+                     block: int = 128) -> torch.Tensor:
+    """Controlled FFN pair y = act(x @ Wup[:, keep] [, · gate]) @
+    Wdown[keep, :], differentiable in x and the weights.
+
+    x: [..., K]; w_up/w_gate: [K, H]; w_down: [H, d_out]; keep_idx: [kb]
+    kept H-block ids. On the card: the compact hidden stage
+    (``csrc/fused_pruned_ffn.cu``) then the block-pruned down product;
+    ``act_fn`` must be :func:`silu` or :func:`gelu`.
+    """
+    *lead, K = x.shape
+    _validate(w_up.shape[1], w_down.shape[0], keep_idx, block,
+              "fused_pruned_ffn")
+    if w_up.shape[0] != K or (w_gate is not None
+                              and w_gate.shape != w_up.shape):
+        raise ValueError(
+            f"fused_pruned_ffn: x has K={K} but w_up is "
+            f"{tuple(w_up.shape)}"
+            + ("" if w_gate is None else f", w_gate {tuple(w_gate.shape)}"))
+    if act_fn is None:
+        raise ValueError("fused_pruned_ffn: act_fn is required")
+    if x.is_cuda and act_fn not in ACT_CODES:
+        raise ValueError(
+            f"fused_pruned_ffn: activation {act_fn!r} has no kernel "
+            "code; use repro_torch.kernels.ops.silu or .gelu")
+    y = _FusedPrunedFFN.apply(x.reshape(-1, K), w_up, w_down, keep_idx,
+                              w_gate, act_fn, block)
+    return y.reshape(*lead, w_down.shape[1])
+
+
+fused_pruned_ffn.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -394,7 +751,8 @@ fused_decode_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 KERNEL_WRAPPERS = (block_pruned_matmul, fused_pruned_ffn,
-                   fused_decode_attention)
+                   fused_decode_attention, pruned_matmul_dx, pruned_matmul_dw,
+                   outpruned_matmul, outpruned_matmul_dx, outpruned_matmul_dw)
 
 
 def launch_counts() -> dict:

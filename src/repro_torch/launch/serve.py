@@ -48,11 +48,14 @@ from repro_torch.control import ControlConfig, ControlPlane
 from repro_torch.control import scopes as scopes_lib
 from repro_torch.core import hetero as hetero_lib
 from repro_torch.core import paging as paging_lib
-from repro_torch.layers.tp_linear import TRAINING_SLICE, ControlContext
+from repro_torch.layers.tp_linear import GEOMETRY_SLICE, ControlContext
 from repro_torch.models import lm as lm_lib
 
 PAGED_SLICE = "the paged serving slice (ROADMAP.md, queue A)"
-CHECKPOINT_SLICE = "the training slice's checkpoint port (ROADMAP.md, queue A)"
+CHECKPOINT_SLICE = ("the checkpoint slice (ROADMAP.md, queue A: "
+                    "checkpoint/store.py, then the serve engine's ckpt_dir)")
+SERVE_TP_SLICE = ("a later slice (ROADMAP.md, queue A: the serve engine at "
+                  "tp > 1 with mig|semi)")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -213,17 +216,17 @@ class ServeEngine:
                 f"the paged KV pool and int8 K/V come with {PAGED_SLICE}")
         if c.geometry is not None:
             raise NotImplementedError(
-                f"a ragged shard geometry comes with {TRAINING_SLICE}")
+                f"a ragged shard geometry comes with {GEOMETRY_SLICE}")
         if ckpt_dir:
             raise NotImplementedError(
                 f"loading a checkpoint comes with {CHECKPOINT_SLICE}")
         if tp != 1:
             raise NotImplementedError(
-                f"serving at tp={tp} comes with {TRAINING_SLICE}")
+                f"serving at tp={tp} comes with {SERVE_TP_SLICE}")
         if c.mode in ("mig", "semi"):
             raise NotImplementedError(
                 f"control mode {c.mode!r} (migration) comes with "
-                f"{TRAINING_SLICE}")
+                f"{SERVE_TP_SLICE}")
         self.cfg = (model_cfg if model_cfg is not None
                     else smoke_variant(get_config(arch)))
         if self.cfg.encdec is not None:
@@ -434,7 +437,7 @@ class ServeEngine:
                            chis, np.ones(self.sim_ranks) * chunk_scale))
 
         self.plane.timer.start()
-        with torch.no_grad():
+        with torch.inference_mode():
             tok_ids, self.cache = step_fn(self.params, self.cache, tokens_cb,
                                           pos_cb, valid_cb, clear,
                                           plan_arrays)

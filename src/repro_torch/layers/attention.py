@@ -1,10 +1,14 @@
-"""Attention pieces for decode (port of ``repro.layers.attention``):
-rotary embeddings and the plain one-token decode attention.
+"""Attention pieces (port of ``repro.layers.attention``): rotary
+embeddings, full-sequence attention and the plain one-token decode
+attention.
 
-``decode_attention`` is the plain version of the fused decode kernel
-(``kernels/ops.fused_decode_attention``): it materializes the
-[B, Hkv, G, S] scores. Prefill attention, M-RoPE, MLA and the paged
-variants come with later slices.
+``flash_attention`` is the full-sequence attention of the training path
+(bidirectional for ViT, causal for a decoder). The reference computes it
+with an online softmax under ``lax.scan``, not in Pallas; here it is
+plain PyTorch that materializes the [B, Hkv, G, Sq, Skv] scores in f32,
+which at ViT's 65 tokens are small. ``decode_attention`` is the plain
+version of the fused decode kernel (``kernels/ops.fused_decode_attention``).
+M-RoPE, MLA and the paged variants come with later slices.
 """
 from __future__ import annotations
 
@@ -69,3 +73,35 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgs,bhsd->bhgd", p, v_cache.float())
     return out.reshape(B, Hq, 1, D).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Full-sequence attention, the reference's ``flash_attention``.
+
+    q [B, Hq, Sq, D]; k, v [B, Hkv, Skv, D]; Hq % Hkv == 0 (GQA groups
+    stay factored — K/V are never repeated to Hq). positions are int
+    [Sq] / [Skv], used for the causal and sliding-window masks
+    (window=0 => full). Scores and softmax in f32; returns q.dtype.
+    """
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Hkv, G, Sq, D).float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    pq = q_positions.to(torch.int64)[:, None]
+    pk = kv_positions.to(torch.int64)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (pk <= pq)
+    if window > 0:
+        mask = mask & (pq - pk < window)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    out = out / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    return out.reshape(B, Hq, Sq, Dv).to(q.dtype)

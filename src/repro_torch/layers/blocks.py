@@ -1,4 +1,4 @@
-"""Transformer blocks, the dense GQA decode subset (port of
+"""Transformer blocks, the dense GQA subset (port of
 ``repro.layers.blocks``).
 
 Parameters are ``nn.Module`` containers whose tensors keep the reference's
@@ -7,10 +7,16 @@ them, as the reference's pure functions run its parameter dicts. The
 reference stacks its layers under one ``lax.scan``; here the stack is an
 ``nn.ModuleList`` of per-layer :class:`Block` modules and a Python loop.
 
-What this slice covers: dense decoder layers ("attn" kind) with GQA and
-RoPE, decoding one token per slot against the fixed slot cache. Train /
-prefill attention, MLA, MoE, SSM and RG-LRU layers and the paged cache
-come with later slices and raise ``NotImplementedError`` here.
+Every parameter is trainable (``requires_grad``); the serve engine runs
+its steps under ``torch.inference_mode()`` and pays nothing for autograd.
+
+What this slice covers: dense layers with GQA — decoder layers ("attn",
+RoPE) decoding one token per slot against the fixed slot cache, and
+full-sequence attention without a cache, causal or bidirectional
+("attn_bidir", the ViT encoder, whose learned positions the model adds
+before the stack). Prefill into a cache, MLA, MoE, SSM and RG-LRU layers
+and the paged cache come with later slices and raise
+``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -40,8 +46,7 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def _zeros(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device))
 
 
 def _weight(gen: Optional[torch.Generator], shape, std: float, dtype,
@@ -52,7 +57,7 @@ def _weight(gen: Optional[torch.Generator], shape, std: float, dtype,
         return _zeros(shape, dtype, device)
     t = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=device) * std
-    return nn.Parameter(t.to(dtype), requires_grad=False)
+    return nn.Parameter(t.to(dtype))
 
 
 def act_of(name: str) -> Tuple[Callable, bool]:
@@ -74,7 +79,7 @@ def _check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: only dense GQA decoder layers are ported; MLA, "
             f"MoE, SSM, RG-LRU and encoder-decoder layers come with "
             f"{LATER_SLICE}")
-    if cfg.pos_embedding not in ("rope", "none"):
+    if cfg.pos_embedding not in ("rope", "none", "learned"):
         raise NotImplementedError(
             f"{cfg.name}: position embedding {cfg.pos_embedding!r} comes "
             f"with {LATER_SLICE}")
@@ -129,20 +134,22 @@ def _write_slot_rows(cache: torch.Tensor, new: torch.Tensor, index) -> None:
 
 def apply_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
                     ctx: Optional[ControlContext], positions: torch.Tensor,
-                    window: int = 0, cache=None,
+                    causal: bool = True, window: int = 0, cache=None,
                     cur_pos: Optional[torch.Tensor] = None,
                     rope=None, write_index=None):
-    """Decode self-attention: x [B, 1, d]; the cache's K/V rows at each
-    slot's OWN cur_pos are written in place (continuous batching runs
-    slots at ragged positions), then the cache is attended. ``rope``
-    (:func:`attention.rope_tables`) and ``write_index``
-    (:func:`slot_write_index`) are computed here unless the caller
-    shares them across layers. Returns (y, cache)."""
+    """Self-attention. Returns (y, cache).
+
+    cache None => the full sequence (training): x [B, S, d], positions
+    [S], causal or bidirectional. cache given => decode: x [B, 1, d];
+    the cache's K/V rows at each slot's OWN cur_pos are written in place
+    (continuous batching runs slots at ragged positions), then the cache
+    is attended. ``rope`` (:func:`attention.rope_tables`) and
+    ``write_index`` (:func:`slot_write_index`) are computed here unless
+    the caller shares them across layers."""
     B, S, d = x.shape
-    if cache is None or S != 1:
+    if cache is not None and S != 1:
         raise NotImplementedError(
-            f"attention without a decode cache (train / prefill) comes with "
-            f"{LATER_SLICE}")
+            f"prefill into a decode cache comes with {LATER_SLICE}")
     hd = cfg.resolved_head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
 
@@ -159,7 +166,13 @@ def apply_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
             rope = attn_lib.rope_tables(positions, hd, cfg.rope_theta)
         q = attn_lib.apply_rope(q, positions, cfg.rope_theta, rope)
         k = attn_lib.apply_rope(k, positions, cfg.rope_theta, rope)
-    q = q.transpose(1, 2)                                 # [B, H, 1, hd]
+    q = q.transpose(1, 2)                                 # [B, H, S, hd]
+    if cache is None:
+        o = attn_lib.flash_attention(
+            q, k.transpose(1, 2), v.transpose(1, 2), q_positions=positions,
+            kv_positions=positions, causal=causal, window=window)
+        o = o.transpose(1, 2).reshape(B, S, H * hd)
+        return controlled_proj(o, p.wo, ctx, "attn_out", split="row"), None
 
     kc, vc = cache["k"], cache["v"]
     if write_index is None:
@@ -212,14 +225,21 @@ def apply_ffn(p: FFN, x: torch.Tensor, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
+ATTN_KINDS = ("attn", "attn_bidir")
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in ATTN_KINDS:
+        raise NotImplementedError(
+            f"layer kind {kind!r} comes with {LATER_SLICE}")
+
+
 class Block(nn.Module):
     """norm1 / norm2 [d] f32 (applied as ``1 + scale``), attn, ffn."""
 
     def __init__(self, cfg: ModelConfig, kind: str, dtype, device, gen=None):
         super().__init__()
-        if kind != "attn":
-            raise NotImplementedError(
-                f"layer kind {kind!r} comes with {LATER_SLICE}")
+        _check_kind(kind)
         d = cfg.d_model
         _, gated = act_of(cfg.act)
         self.norm1 = _zeros((d,), torch.float32, device)
@@ -236,19 +256,18 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype,
 def apply_block(p: Block, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 ctx: Optional[ControlContext], positions: torch.Tensor,
                 cache=None, cur_pos: Optional[torch.Tensor] = None,
-                rope=None, write_index=None):
-    """Returns (x_out, cache). ``rope`` / ``write_index``: see
-    :func:`apply_attention`."""
-    if kind != "attn":
-        raise NotImplementedError(
-            f"layer kind {kind!r} comes with {LATER_SLICE}")
+                causal: bool = True, rope=None, write_index=None):
+    """Returns (x_out, cache). An "attn_bidir" layer is never causal.
+    ``rope`` / ``write_index``: see :func:`apply_attention`."""
+    _check_kind(kind)
     eps = cfg.norm_eps
     window = cfg.sliding_window
     attn_cache = None if cache is None else cache.get("attn", cache)
     h, ac = apply_attention(p.attn, rms_norm(x, p.norm1, eps), cfg, ctx=ctx,
-                            positions=positions, window=window,
-                            cache=attn_cache, cur_pos=cur_pos, rope=rope,
-                            write_index=write_index)
+                            positions=positions,
+                            causal=causal and kind != "attn_bidir",
+                            window=window, cache=attn_cache, cur_pos=cur_pos,
+                            rope=rope, write_index=write_index)
     x = x + h
     x = x + apply_ffn(p.ffn, rms_norm(x, p.norm2, eps), cfg, ctx)
     return x, (None if ac is None else {"attn": ac})
@@ -272,21 +291,26 @@ def split_layers(cfg: ModelConfig):
 
 
 def init_stack(gen: Optional[torch.Generator], cfg: ModelConfig, dtype,
-               device="cuda") -> nn.ModuleList:
+               device="cuda", kind_override: Optional[str] = None
+               ) -> nn.ModuleList:
     """Per-layer blocks (the reference's stacked ``scan`` leaves,
-    unstacked); zeros when ``gen`` is None."""
+    unstacked); zeros when ``gen`` is None. ``kind_override`` makes every
+    layer that kind (ViT's "attn_bidir")."""
     _, pattern, repeat, _ = split_layers(cfg)
-    return nn.ModuleList(init_block(gen, cfg, pattern[0], dtype, device)
+    kind = kind_override or pattern[0]
+    return nn.ModuleList(init_block(gen, cfg, kind, dtype, device)
                          for _ in range(repeat))
 
 
 def apply_stack(stack: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig, *,
-                ctx=None, positions=None, caches=None, cur_pos=None):
-    """Run all layers. ``caches`` has the reference's layout
+                ctx=None, positions=None, caches=None, cur_pos=None,
+                causal: bool = True, kind_override: Optional[str] = None):
+    """Run all layers. ``caches`` (decode) has the reference's layout
     ``{"scan": ({"attn": {"k": [L, B, KV, S, hd], "v": ...}},)}``; layer
-    i writes its K/V rows in place into slice i. Returns (x, caches)."""
+    i writes its K/V rows in place into slice i. Without caches every
+    layer attends the full sequence. Returns (x, caches)."""
     _, pattern, repeat, _ = split_layers(cfg)
-    kind = pattern[0]
+    kind = kind_override or pattern[0]
     layer_cache = None if caches is None else caches["scan"][0]["attn"]
     # every layer rotates and writes at the same positions: compute the
     # RoPE tables and the cache-write index once per step
@@ -300,6 +324,6 @@ def apply_stack(stack: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig, *,
         c = (None if layer_cache is None else
              {"attn": {"k": layer_cache["k"][i], "v": layer_cache["v"][i]}})
         x, _ = apply_block(blk, x, cfg, kind, ctx=ctx, positions=positions,
-                           cache=c, cur_pos=cur_pos, rope=rope,
-                           write_index=write_index)
+                           cache=c, cur_pos=cur_pos, causal=causal,
+                           rope=rope, write_index=write_index)
     return x, caches

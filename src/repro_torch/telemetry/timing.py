@@ -9,9 +9,13 @@ Two clocks feed a :class:`StepSample`:
   wall includes the device work and not just its enqueue.
 * **per-rank segment clock** — each simulated rank's matmul-path time,
   from the simulated measurement backend (χ-schedule ×
-  ``IterationModel`` × the ACTIVE plan's work fraction). At ``tp == 1``
-  there is no rank group to gather over, so the vector passes through
-  unchanged; the cross-rank gather arrives with multi-rank emulation.
+  ``IterationModel`` × the ACTIVE plan's work fraction). The reference
+  all-gathers the ranks' local clocks over the mesh's ``model`` axis once
+  per control interval. Here the ``tp`` ranks are emulated in one
+  process, so the gather is the identity over the group — the vector
+  goes through float32 as the reference's does, and ``gather_count``
+  counts it as the reference counts its collectives. At ``tp == 1``
+  there is no group and the vector passes through unchanged.
 """
 from __future__ import annotations
 
@@ -69,16 +73,19 @@ def _wait_for(outputs) -> None:
 
 
 class RankTimer:
-    """Host wall clock for the measurement loop.
+    """Host wall clock + per-rank gather for the measurement loop.
 
     ``start``/``stop`` measure the real step wall (``stop`` waits for the
     step outputs' device first, so asynchronous launches cannot hide
-    device time). ``maybe_gather`` is the hook where a multi-rank group
-    would exchange its local clocks once per control interval; with one
-    rank it returns the vector as given.
+    device time). ``gather`` exchanges the ranks' local clocks — run
+    every ``interval`` steps by ``maybe_gather`` when the group has more
+    than one rank.
     """
 
-    def __init__(self):
+    def __init__(self, tp: int = 1, interval: int = 1):
+        self.tp = int(tp)
+        self.interval = max(int(interval), 1)
+        self.gather_count = 0
         self._t0: Optional[float] = None
 
     # -- host wall ---------------------------------------------------------
@@ -94,8 +101,18 @@ class RankTimer:
         return time.perf_counter() - t0
 
     # -- per-rank gather ----------------------------------------------------
+    def gather(self, local_times: np.ndarray) -> np.ndarray:
+        """All-gather the per-rank local clocks: the identity over the
+        emulated group, in float32 as the reference's collective."""
+        if self.tp <= 1:
+            return np.asarray(local_times, np.float64)
+        self.gather_count += 1
+        return np.asarray(np.asarray(local_times, np.float32), np.float64)
+
     def maybe_gather(self, step: int, local_times: np.ndarray) -> np.ndarray:
-        """One rank holds every clock already: pass the vector through."""
+        """Gather on control-interval boundaries; pass through otherwise."""
+        if self.tp > 1 and step % self.interval == 0:
+            return self.gather(local_times)
         return np.asarray(local_times, np.float64)
 
 

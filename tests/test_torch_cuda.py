@@ -67,9 +67,13 @@ def test_cuda_kernels_match_plain(cuda_device, dtype, block):
     torch.cuda.synchronize()
     # the FFN's down product runs the block-pruned kernel without counting
     # as a call of the block-pruned wrapper
-    assert tops.launch_counts() == {"block_pruned_matmul": 1,
-                                    "fused_pruned_ffn": 2,
-                                    "fused_decode_attention": 2}
+    counts = tops.launch_counts()
+    assert {k: counts[k] for k in ("block_pruned_matmul", "fused_pruned_ffn",
+                                   "fused_decode_attention")} == {
+        "block_pruned_matmul": 1, "fused_pruned_ffn": 2,
+        "fused_decode_attention": 2}
+    # no backward ran: the backward kernels did not launch
+    assert sum(counts.values()) == 5
 
 
 @pytest.mark.cuda
@@ -89,3 +93,129 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="no kernel code"):
         tops.fused_pruned_ffn(xf, w_up, w_down, keep, None, torch.relu, 8)
     assert set(tops.launch_counts().values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# the backward family (#8-#12) and a controlled training step
+# ---------------------------------------------------------------------------
+
+
+def _nan(shape, dtype, device):
+    return torch.full(shape, float("nan"), dtype=dtype, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block", [8, 128])
+def test_cuda_grad_kernels_match_plain(cuda_device, dtype, block):
+    """Every output element is written by the kernel: the outputs start
+    as NaN, so a skipped (pruned) element would show. The keep list is
+    unsorted, which pins compact slot k to block keep[k]."""
+    g = torch.Generator(device=cuda_device).manual_seed(block + 1)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    tops.reset_launch_counts()
+    nb, M, N = 6, 70, 96                    # M, N off the 64-wide tiles
+    keep = torch.tensor([4, 0, 3], dtype=torch.int32, device=cuda_device)
+    kb = keep.shape[0]
+    order = tops.inverse_order(keep, nb)
+    K = nb * block
+    dy, w = rnd(M, N), rnd(K, N)
+    x, xc = rnd(M, K), rnd(M, kb * block)
+    wo, dyc = rnd(N, K), rnd(M, kb * block)
+    cases = [
+        ("dx", lambda out: tops.pruned_matmul_dx(dy, w, order, kb=kb,
+                                                  block=block, out=out),
+         tops.pruned_matmul_dx_plain(dy, w, order, kb, block), (M, K)),
+        ("dx compact", lambda out: tops.pruned_matmul_dx(
+            dy, w, keep, kb=kb, block=block, compact_out=True, out=out),
+         tops.pruned_matmul_dx_plain(dy, w, keep, kb, block, True),
+         (M, kb * block)),
+        ("dw", lambda out: tops.pruned_matmul_dw(x, dy, order, kb=kb,
+                                                  block=block, out=out),
+         tops.pruned_matmul_dw_plain(x, dy, order, kb, block), (K, N)),
+        ("dw x_compact", lambda out: tops.pruned_matmul_dw(
+            xc, dy, order, kb=kb, block=block, x_compact=True, out=out),
+         tops.pruned_matmul_dw_plain(xc, dy, order, kb, block, True),
+         (K, N)),
+        ("outpruned", lambda out: tops.outpruned_matmul(
+            dy, wo, keep, block=block, out=out),
+         tops.outpruned_matmul_plain(dy, wo, keep, block), (M, kb * block)),
+        ("outpruned dx", lambda out: tops.outpruned_matmul_dx(
+            dyc, wo, keep, block=block, out=out),
+         tops.outpruned_matmul_dx_plain(dyc, wo, keep, block), (M, N)),
+        ("outpruned dw", lambda out: tops.outpruned_matmul_dw(
+            dy, dyc, order, kb=kb, block=block, out=out),
+         tops.outpruned_matmul_dw_plain(dy, dyc, order, kb, block), (N, K)),
+    ]
+    for name, run, ref, shape in cases:
+        out = _nan(shape, dtype, cuda_device)
+        got = run(out)
+        torch.cuda.synchronize()
+        assert got.data_ptr() == out.data_ptr(), name
+        assert bool(torch.isfinite(got.float()).all()), name
+        _close(got, ref, dtype)
+    counts = tops.launch_counts()
+    assert counts["pruned_matmul_dx"] == 2
+    assert counts["pruned_matmul_dw"] == 2
+    assert counts["outpruned_matmul"] == 1
+    assert counts["outpruned_matmul_dx"] == 1
+    assert counts["outpruned_matmul_dw"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_controlled_train_step_kernel_vs_plain(cuda_device):
+    """One controlled step of ViT smoke at tp=4 (a resized straggler that
+    also migrates, a second resized rank): the kernel path's loss and
+    every parameter gradient against the plain path's, f32, max |err| <=
+    1e-4 * max |ref| per parameter; every kernel of the path launched."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.config import get_config, smoke_variant
+    from repro_torch.control import scopes as scopes_lib
+    from repro_torch.core.workload import PlanStatic
+    from repro_torch.data.pipeline import PatternImageStream, patchify
+    from repro_torch.layers.tp_linear import ControlContext
+    from repro_torch.models import vit
+
+    cfg = smoke_variant(get_config("vit-1b"))
+    st = PlanStatic(block_size=8, tp_size=4, mig_shed=(2,))
+    st = dataclasses.replace(
+        st, scope_blocks=scopes_lib.scope_block_table(cfg, st))
+    scopes = scopes_lib.control_scopes(cfg, st)
+    rng = np.random.default_rng(1)
+    pri = scopes_lib.plan_pri_arrays(
+        scopes, {n: rng.permutation(nb * (1 if scopes_lib.SCOPE_LAYOUT[n]
+                                          == "col" else 4))
+                 for n, nb in scopes.items()}, 4, device=cuda_device)
+    img = next(iter(PatternImageStream(batch_size=8, seed=2)))
+    batch = {"patches": torch.from_numpy(patchify(img["images"])).to(
+                 cuda_device),
+             "labels": torch.from_numpy(img["labels"]).to(cuda_device)}
+    out = {}
+    for use_kernel in (True, False):
+        model = vit.init(torch.Generator(device=cuda_device).manual_seed(0),
+                         cfg, torch.float32, cuda_device)
+        ctx = ControlContext(static=st, bucket_by_rank=[5, 0, 2, 0],
+                             pri=pri, use_kernel=use_kernel, mig_src=[0])
+        tops.reset_launch_counts()
+        loss, _ = vit.loss_fn(model, cfg, batch, ctx=ctx)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[use_kernel] = (float(loss.detach()), {n: p.grad.float().cpu() for n, p
+                                         in model.named_parameters()},
+                           tops.launch_counts())
+    (lk, gk, counts), (lp, gp, plain_counts) = out[True], out[False]
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for n, ref in gp.items():
+        assert float((gk[n] - ref).abs().max()) <= \
+            1e-4 * float(ref.abs().max()), n
+    for name in ("block_pruned_matmul", "fused_pruned_ffn",
+                 "pruned_matmul_dx", "pruned_matmul_dw", "outpruned_matmul",
+                 "outpruned_matmul_dx", "outpruned_matmul_dw"):
+        assert counts[name] > 0, name
+    assert set(plain_counts.values()) == {0}

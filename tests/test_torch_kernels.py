@@ -190,12 +190,17 @@ def test_cpu_tensors_never_move_a_launch_counter():
     x, w = torch.from_numpy(_arr(rng, (4, 64))), torch.from_numpy(
         _arr(rng, (64, 64)))
     keep = torch.tensor([1, 4], dtype=torch.int32)
-    tops.block_pruned_matmul(x, w, keep, block=8)
-    tops.fused_pruned_ffn(x, w, w, keep, w, tops.silu, 8)
+    w.requires_grad_()
+    # the backward passes run the five backward wrappers' plain versions
+    tops.block_pruned_matmul(x, w, keep, block=8).sum().backward()
+    tops.fused_pruned_ffn(x, w, w, keep, w, tops.silu, 8).sum().backward()
     q = torch.from_numpy(_arr(rng, (2, 4, 1, 8)))
     kv = torch.from_numpy(_arr(rng, (2, 2, 16, 8)))
     tops.fused_decode_attention(q, kv, kv,
                                 cur_pos=torch.tensor([3, 2 ** 30]))
-    assert tops.launch_counts() == {"block_pruned_matmul": 0,
-                                    "fused_pruned_ffn": 0,
-                                    "fused_decode_attention": 0}
+    counts = tops.launch_counts()
+    assert set(counts) == {"block_pruned_matmul", "fused_pruned_ffn",
+                           "fused_decode_attention", "pruned_matmul_dx",
+                           "pruned_matmul_dw", "outpruned_matmul",
+                           "outpruned_matmul_dx", "outpruned_matmul_dw"}
+    assert set(counts.values()) == {0}

@@ -141,6 +141,8 @@ def test_cli_runs_on_cpu(capsys):
 def test_port_imports_neither_jax_nor_repro():
     code = ("import sys, json\n"
             "import repro_torch.launch.serve, repro_torch.bridge\n"
+            "import repro_torch.launch.train, repro_torch.models.vit\n"
+            "import repro_torch.parallel, repro_torch.kernels.ops\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
             "or m.startswith('repro.'))\n"
