@@ -10,15 +10,21 @@ Phases, each printing one line of its own; any failure exits non-zero:
               ``src/repro_torch/kernels/csrc`` (one nvcc per source, all
               started together) and print the build seconds.
 2. kernels  — each kernel against its plain PyTorch version on the card,
-              at the shapes full-width Yi-6B serving with 8 slots gives it,
-              in float32 (max |err| <= 1e-4 * max |ref|) and bfloat16
-              (max |err| <= 2e-2 * max |ref|), plus block 8 at a small
-              shape; each timed with CUDA events beside its plain version,
-              a one-call PyTorch yardstick where one exists, and its bound
-              at 3.35 TB/s and 989 (bf16) / 67 (f32) TFLOP/s.
-3. reference — one decode step of a two-layer, full-width Yi-6B in float32
-              under a resizing plan: the kernel path against the plain
-              path, on the same inputs.
+              at the shapes full-width Yi-6B and DeepSeek-V2-Lite serving
+              with 8 slots give it, in float32 (max |err| <= 1e-4 * max
+              |ref|) and bfloat16 (max |err| <= 2e-2 * max |ref|), plus
+              block 8 at a small shape; the paged and MLA decode
+              attentions (#4-#6) write into NaN-filled outputs and read
+              pools whose unreferenced pages are NaN (ragged positions,
+              one invalid lane, a shuffled page order, trailing -1
+              entries); each timed with CUDA events beside its plain
+              version, a one-call PyTorch yardstick where one exists, and
+              its bound at 3.35 TB/s and 989 (bf16) / 67 (f32) TFLOP/s.
+3. reference — decode steps of two-layer, full-width models in float32
+              under a resizing plan, the kernel path against the plain
+              path on the same inputs: Yi-6B over the slot cache and over
+              the paged pool, DeepSeek-V2-Lite (dense layer + MoE layer)
+              over the slot cache and over the paged pool.
 4. serve    — the port's ServeEngine serves 16 requests at full Yi-6B
               width (32 layers, bf16, random weights from a seed) under
               ZERO-resizing with a contended simulated 8-rank group and
@@ -27,6 +33,16 @@ Phases, each printing one line of its own; any failure exits non-zero:
 5. profile  — eight decode-only steps of the same engine under
               torch.profiler: wall vs device-kernel time per step and
               the device time by kernel family.
+   paged-serve — the same run over the paged pool (page 16, 96 pages):
+              it must preempt, and #2, #3, #4 must launch.
+   mla-serve — the same traffic and control at full DeepSeek-V2-Lite
+              width (27 layers, MLA + MoE, bf16), over the slot cache
+              (#3, #5 must launch) and over a paged pool of 160 pages
+              (#3, #6), which holds the traffic's peak, so both runs step
+              through the same plans; the share of requests whose tokens
+              agree between the two runs is printed (information only).
+   mla-profile — eight decode-only steps of the paged DeepSeek engine
+              under torch.profiler, as phase 5.
 6. grad-kernels — the backward family (#8-#12) against its plain
               versions at the shapes the ViT-1B train run gives it
               (tp 4, 520 rows, block 8), f32 and bf16 with the same
@@ -46,12 +62,14 @@ Phases, each printing one line of its own; any failure exits non-zero:
 9. train-profile — three steps of the same model under the run's plan,
               under torch.profiler: wall vs device time, by family.
 
-Then one JSON line of per-kernel numbers (launches: the serving kernels
-from phase 4, the backward family from phase 8) and, last, the JSON line
+Then one JSON line of per-kernel numbers (launches of each kernel from
+the run of its path: #1-#3 phase 4, #4 paged-serve, #5 / #6 the two
+mla-serve runs, the backward family phase 8) and, last, the JSON line
 ``{"ok": true, "device": {...}}``. The engines' latencies are MODELED (a
 host-CPU calibration) and are not printed as card times; the serve and
 train phases print host wall-clock numbers only.
 """
+import gc
 import json
 import math
 import subprocess
@@ -72,6 +90,9 @@ REPLACES = {
     "outpruned_matmul": "src/repro/kernels/pruned_matmul.py:330",
     "outpruned_matmul_dx": "src/repro/kernels/pruned_matmul.py:388",
     "outpruned_matmul_dw": "src/repro/kernels/pruned_matmul.py:453",
+    "fused_paged_decode_attention": "src/repro/kernels/decode_attn.py:444",
+    "fused_mla_decode_attention": "src/repro/kernels/decode_attn.py:227",
+    "fused_paged_mla_decode_attention": "src/repro/kernels/decode_attn.py:546",
 }
 _GRAD_CU = "src/repro_torch/kernels/csrc/pruned_grad.cu"
 SOURCES = {
@@ -83,6 +104,12 @@ SOURCES = {
     "outpruned_matmul": _GRAD_CU,
     "outpruned_matmul_dx": _GRAD_CU,
     "outpruned_matmul_dw": _GRAD_CU,
+    "fused_paged_decode_attention":
+        "src/repro_torch/kernels/csrc/gqa_paged_decode_attn.cu",
+    "fused_mla_decode_attention":
+        "src/repro_torch/kernels/csrc/mla_decode_attn.cu",
+    "fused_paged_mla_decode_attention":
+        "src/repro_torch/kernels/csrc/mla_decode_attn.cu",
 }
 
 
@@ -371,6 +398,191 @@ def main():
                    f"{cur_np.tolist()}", dtype, got, ref, timings, nbytes,
                    flops, dtype == torch.bfloat16 and window == 0)
         del qs, ks, vs
+
+    # -- paged GQA (#4) and absorbed-MLA decode attention over the slot
+    # cache (#5) and the paged pool (#6), at the shapes full-width Yi-6B
+    # and DeepSeek-V2-Lite serving give them: page 16, max_len 1024 (64
+    # pages per slot), a pool of 8 x 64 pages. Each slot holds shuffled
+    # pages up to its cur_pos (the invalid lane all but its last two, -1);
+    # every page no table references is NaN, and so is every output before
+    # the launch, so a kernel that read an unallocated page or skipped an
+    # output element shows it.
+    PS, PPS = 16, S // 16
+    N_PAGES = B * PPS
+    perm = np.random.default_rng(4).permutation(N_PAGES)
+    table = np.full((B, PPS), -1, np.int32)
+    used = 0
+    for b, c in enumerate(cur_np):
+        n = PPS - 2 if c >= S else c // PS + 1
+        table[b, :n] = perm[used:used + n]
+        used += n
+    pages = torch.from_numpy(table).to(dev)
+    unref = torch.ones(N_PAGES, dtype=torch.bool)
+    unref[torch.from_numpy(table[table >= 0]).long()] = False
+    unref = unref.to(dev)
+    H_MLA, R_MLA, DR_MLA, SCALE_DIM = 16, 512, 64, 192   # DeepSeek-V2-Lite
+
+    def nan_pool(shape, dtype):
+        t = rnd(shape, dtype)
+        t[unref] = float("nan")
+        return t
+
+    def nan_out(shape, dtype):
+        return torch.full(shape, float("nan"), dtype=dtype, device=dev)
+
+    def written(got, out, name):
+        if got.data_ptr() != out.data_ptr():
+            raise SystemExit(f"{name}: the kernel did not write into `out`")
+        return got
+
+    def sdpa_yardstick(q4, k4, v4, mask4, scale=None):
+        """SDPA on pre-gathered rows (heads of K/V broadcast to the query
+        heads where this PyTorch has no enable_gqa), or None where SDPA
+        refuses the shapes."""
+        def call(k_, v_, **kw):
+            return F.scaled_dot_product_attention(q4, k_, v_, attn_mask=mask4,
+                                                  scale=scale, **kw)
+        try:
+            try:
+                call(k4, v4, enable_gqa=True)
+                return lambda: call(k4, v4, enable_gqa=True)
+            except TypeError:
+                rep_ = q4.shape[1] // k4.shape[1]
+                kx = k4.repeat_interleave(rep_, 1)
+                vx = v4.repeat_interleave(rep_, 1)
+                call(kx, vx)
+                return lambda: call(kx, vx)
+        except RuntimeError as e:
+            say("kernels", f"SDPA refuses q {tuple(q4.shape)} k "
+                f"{tuple(k4.shape)} v {tuple(v4.shape)}: {str(e)[:120]}")
+            return None
+
+    def lib_ms(fns, n_sets):
+        return (time_ms(lambda i: fns[i](), n_sets) if fns[0] is not None
+                else None)
+
+    from repro_torch.layers.attention import (gather_paged_kv,
+                                              gather_paged_rows)
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.finfo(dtype).bits // 8
+        n_sets = copies_for(2 * N_PAGES * Hkv * PS * D * es)
+        qs = [rnd((B, Hq, 1, D), dtype) for _ in range(n_sets)]
+        kps = [nan_pool((N_PAGES, Hkv, PS, D), dtype) for _ in range(n_sets)]
+        vps = [nan_pool((N_PAGES, Hkv, PS, D), dtype) for _ in range(n_sets)]
+        for window in (0, 200):
+            out = nan_out((B, Hq, 1, D), dtype)
+            got = written(ops.fused_paged_decode_attention(
+                qs[0], kps[0], vps[0], pages=pages, cur_pos=cur,
+                window=window, out=out), out, "fused_paged_decode_attention")
+            ref = ops.gqa_paged_decode_attn_plain(qs[0], kps[0], vps[0],
+                                                  pages, cur, window)
+            ok_rows = ops.paged_attended_rows(pages, PS, N_PAGES, cur, window)
+            kg = [gather_paged_kv(k, pages) for k in kps]
+            vg = [gather_paged_kv(v, pages) for v in vps]
+            lib_fns = [sdpa_yardstick(qs[i], kg[i], vg[i],
+                                      ok_rows[:, None, None, :])
+                       for i in range(n_sets)]
+            timings = {
+                "ms": time_ms(lambda i: ops.fused_paged_decode_attention(
+                    qs[i], kps[i], vps[i], pages=pages, cur_pos=cur,
+                    window=window), n_sets),
+                "device_ms": device_ms(
+                    lambda i: ops.fused_paged_decode_attention(
+                        qs[i], kps[i], vps[i], pages=pages, cur_pos=cur,
+                        window=window), n_sets),
+                "plain_ms": time_ms(lambda i: ops.gqa_paged_decode_attn_plain(
+                    qs[i], kps[i], vps[i], pages, cur, window), n_sets),
+                "library_ms": lib_ms(lib_fns, n_sets)}
+            rows = int(ok_rows.sum())
+            nbytes = ((rows * Hkv * 2 * D + 2 * B * Hq * D) * es + B * 4
+                      + B * PPS * 4)
+            flops = rows * Hq * 2 * 2 * D
+            record("fused_paged_decode_attention",
+                   f"q[8,32,1,128] pools[{N_PAGES},4,16,128] pages[8,64] "
+                   f"window {window}", dtype, got, ref, timings, nbytes,
+                   flops, dtype == torch.bfloat16 and window == 0)
+            del kg, vg, lib_fns
+        del qs, kps, vps
+
+        # absorbed MLA: f32 output [8, 16, 512] from bf16 / f32 inputs
+        n_sets = copies_for(B * S * (R_MLA + DR_MLA) * es)
+        qas = [rnd((B, H_MLA, R_MLA), dtype) for _ in range(n_sets)]
+        qrs = [rnd((B, H_MLA, DR_MLA), dtype) for _ in range(n_sets)]
+        lats = [rnd((B, S, R_MLA), dtype) for _ in range(n_sets)]
+        ropes = [rnd((B, S, DR_MLA), dtype) for _ in range(n_sets)]
+        out = nan_out((B, H_MLA, R_MLA), torch.float32)
+        got = written(ops.fused_mla_decode_attention(
+            qas[0], qrs[0], lats[0], ropes[0], cur_pos=cur,
+            head_dim_for_scale=SCALE_DIM, out=out), out,
+            "fused_mla_decode_attention")
+        ref = ops.mla_decode_attn_plain(qas[0], qrs[0], lats[0], ropes[0],
+                                        cur, SCALE_DIM)
+        ok_rows = ops.attended_rows(S, cur, device=dev)
+        lib_fns = [sdpa_yardstick(
+            torch.cat([qas[i], qrs[i]], -1)[:, :, None, :],
+            torch.cat([lats[i], ropes[i]], -1)[:, None],
+            lats[i][:, None], ok_rows[:, None, None, :],
+            scale=1.0 / math.sqrt(SCALE_DIM)) for i in range(n_sets)]
+        timings = {
+            "ms": time_ms(lambda i: ops.fused_mla_decode_attention(
+                qas[i], qrs[i], lats[i], ropes[i], cur_pos=cur,
+                head_dim_for_scale=SCALE_DIM), n_sets),
+            "device_ms": device_ms(lambda i: ops.fused_mla_decode_attention(
+                qas[i], qrs[i], lats[i], ropes[i], cur_pos=cur,
+                head_dim_for_scale=SCALE_DIM), n_sets),
+            "plain_ms": time_ms(lambda i: ops.mla_decode_attn_plain(
+                qas[i], qrs[i], lats[i], ropes[i], cur, SCALE_DIM), n_sets),
+            "library_ms": lib_ms(lib_fns, n_sets)}
+        rows = int(ok_rows.sum())
+        mla_bytes = (rows * (R_MLA + DR_MLA) * es
+                     + B * H_MLA * (R_MLA + DR_MLA) * es
+                     + B * H_MLA * R_MLA * 4 + B * 4)
+        mla_flops = rows * H_MLA * (2 * (R_MLA + DR_MLA) + 2 * R_MLA)
+        record("fused_mla_decode_attention",
+               "q_abs[8,16,512] q_rope[8,16,64] latent[8,1024,512] "
+               "rope[8,1024,64] scale 1/sqrt(192)", dtype, got, ref, timings,
+               mla_bytes, mla_flops, dtype == torch.bfloat16)
+        del lats, ropes, lib_fns
+
+        lps = [nan_pool((N_PAGES, PS, R_MLA), dtype) for _ in range(n_sets)]
+        rps = [nan_pool((N_PAGES, PS, DR_MLA), dtype) for _ in range(n_sets)]
+        out = nan_out((B, H_MLA, R_MLA), torch.float32)
+        got = written(ops.fused_paged_mla_decode_attention(
+            qas[0], qrs[0], lps[0], rps[0], pages=pages, cur_pos=cur,
+            head_dim_for_scale=SCALE_DIM, out=out), out,
+            "fused_paged_mla_decode_attention")
+        ref = ops.mla_paged_decode_attn_plain(qas[0], qrs[0], lps[0], rps[0],
+                                              pages, cur, SCALE_DIM)
+        ok_rows = ops.paged_attended_rows(pages, PS, N_PAGES, cur)
+        lib_fns = [sdpa_yardstick(
+            torch.cat([qas[i], qrs[i]], -1)[:, :, None, :],
+            torch.cat([gather_paged_rows(lps[i], pages),
+                       gather_paged_rows(rps[i], pages)], -1)[:, None],
+            gather_paged_rows(lps[i], pages)[:, None],
+            ok_rows[:, None, None, :], scale=1.0 / math.sqrt(SCALE_DIM))
+            for i in range(n_sets)]
+        timings = {
+            "ms": time_ms(lambda i: ops.fused_paged_mla_decode_attention(
+                qas[i], qrs[i], lps[i], rps[i], pages=pages, cur_pos=cur,
+                head_dim_for_scale=SCALE_DIM), n_sets),
+            "device_ms": device_ms(
+                lambda i: ops.fused_paged_mla_decode_attention(
+                    qas[i], qrs[i], lps[i], rps[i], pages=pages, cur_pos=cur,
+                    head_dim_for_scale=SCALE_DIM), n_sets),
+            "plain_ms": time_ms(lambda i: ops.mla_paged_decode_attn_plain(
+                qas[i], qrs[i], lps[i], rps[i], pages, cur, SCALE_DIM),
+                n_sets),
+            "library_ms": lib_ms(lib_fns, n_sets)}
+        rows = int(ok_rows.sum())
+        mla_bytes = (rows * (R_MLA + DR_MLA) * es
+                     + B * H_MLA * (R_MLA + DR_MLA) * es
+                     + B * H_MLA * R_MLA * 4 + B * 4 + B * PPS * 4)
+        record("fused_paged_mla_decode_attention",
+               f"q_abs[8,16,512] q_rope[8,16,64] pools[{N_PAGES},16,512] / "
+               f"[{N_PAGES},16,64] pages[8,64]", dtype, got, ref, timings,
+               mla_bytes, rows * H_MLA * (2 * (R_MLA + DR_MLA) + 2 * R_MLA),
+               dtype == torch.bfloat16)
+        del qas, qrs, lps, rps, lib_fns
     torch.cuda.synchronize()
     if failures:
         raise SystemExit(f"kernel checks failed: {failures}")
@@ -417,6 +629,92 @@ def main():
     del params2, cache, logits
     if not ok:
         raise SystemExit("reference check failed")
+
+    # the paged pool and MLA + MoE at full width, two layers, f32: three
+    # decode steps from a cache of random rows at ragged positions (the
+    # last lane invalid in the last step), through shuffled page tables;
+    # the kernel path against the plain path, and every kernel of the
+    # path launched
+    from repro_torch.core import paging as paging_lib
+
+    def tree_map(fn, tree):
+        if isinstance(tree, dict):
+            return {k: tree_map(fn, v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(tree_map(fn, v) for v in tree)
+        return fn(tree)
+
+    def path_check(tag, cfg, seed, block, kernels, page_size=0):
+        params = lm_lib.init(torch.Generator(device=dev).manual_seed(seed),
+                             cfg, torch.float32, dev)
+        st = PlanStatic(block_size=block, tp_size=1)
+        st = dataclasses.replace(
+            st, scope_blocks=scopes_lib.scope_block_table(cfg, st))
+        sc = scopes_lib.control_scopes(cfg, st)
+        pr = scopes_lib.plan_pri_arrays(
+            sc, {n: np.random.default_rng(5).permutation(nb)
+                 for n, nb in sc.items()}, 1, device=dev)
+        start = np.asarray([16, 40, 100, 200, 500, 31, 63, 700], np.int32)
+        lay, pages = None, None
+        if page_size:
+            lay = paging_lib.paged_layout(1024, page_size, B)
+            pperm = np.random.default_rng(seed).permutation(lay.num_pages)
+            tab = np.full((B, lay.pages_per_slot), -1, np.int32)
+            n_used = 0
+            for b in range(B):
+                n = (int(start[b]) + 2) // page_size + 1
+                tab[b, :n] = pperm[n_used:n_used + n]
+                n_used += n
+            pages = torch.from_numpy(tab).to(dev)
+        gc = torch.Generator(device=dev).manual_seed(seed + 1)
+        cache0 = tree_map(
+            lambda t: torch.randn(t.shape, generator=gc, device=dev) * 0.5,
+            lm_lib.init_cache(cfg, B, 1024, torch.float32, dev, paging=lay))
+        toks = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (B,)).astype(np.int32)).to(dev)
+        res = {}
+        for use_kernel in (True, False):
+            cache = tree_map(lambda t: t.clone(), cache0)
+            ctx = ControlContext(
+                static=st, bucket_by_rank=torch.tensor([3], dtype=torch.int32),
+                pri=pr, use_kernel=use_kernel)
+            ck = dataclasses.replace(cfg, fused_decode_attn=use_kernel)
+            ops.reset_launch_counts()
+            with torch.no_grad():
+                for t in range(3):
+                    pos = torch.from_numpy(start + t).to(dev)
+                    if t == 2:
+                        pos[-1] = 2 ** 30
+                    out, cache = lm_lib.decode_step(params, ck, cache, toks,
+                                                    pos, ctx=ctx, pages=pages)
+            torch.cuda.synchronize()
+            res[use_kernel] = (out[:-1].float(), ops.launch_counts())
+        (lk, counts), (lp, _) = res[True], res[False]
+        e, m = errs(lk, lp)
+        ok = (bool(torch.isfinite(lk).all()) and e <= F32_TOL * m
+              and all(counts[k] > 0 for k in kernels))
+        say("reference", f"{tag}, 2 layers, f32, bucket 3 (block {block}): "
+            f"kernel path vs plain path logits max|err| {e:.3e} (max|ref| "
+            f"{m:.3e}); launches {({k: counts[k] for k in kernels})} "
+            f"{'ok' if ok else 'FAIL'}")
+        del params, cache0, res
+        if not ok:
+            raise SystemExit(f"reference check failed: {tag}")
+
+    ds_full = get_config("deepseek-v2-lite-16b")
+    ds2 = dataclasses.replace(ds_full, num_layers=2,
+                              name="deepseek-v2-lite-2layer")
+    path_check("yi-6b width, paged (page 16)", cfg2, 11, 128,
+               ("block_pruned_matmul", "fused_pruned_ffn",
+                "fused_paged_decode_attention"), page_size=16)
+    path_check("deepseek-v2-lite width (dense layer + MoE layer), slot "
+               "cache", ds2, 12, 64,
+               ("fused_pruned_ffn", "fused_mla_decode_attention"))
+    path_check("deepseek-v2-lite width (dense layer + MoE layer), paged "
+               "(page 16)", ds2, 13, 64,
+               ("fused_pruned_ffn", "fused_paged_mla_decode_attention"),
+               page_size=16)
+    torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 4
     torch.cuda.empty_cache()
@@ -495,6 +793,7 @@ def main():
         for key, fam in (("bpm_", "block-pruned products (proj + FFN down)"),
                          ("ffn_hidden", "fused_pruned_ffn hidden stage"),
                          ("gqa_decode", "fused_decode_attention"),
+                         ("gqa_paged", "fused_paged_decode_attention"),
                          ("reduce_splits", "split reductions")):
             if key in name:
                 return fam
@@ -517,6 +816,162 @@ def main():
     for name, calls, ms in rows[:8]:
         say("profile", f"  top: {ms / n_prof:.3f} ms/step, {calls / n_prof:.0f}"
             f"/step  {name[:90]}")
+    yi_tokens = {c.uid: c.tokens.tolist() for c in comps}
+
+    def free():
+        # an engine is a reference cycle (its control plane keeps a
+        # closure over it): collect it before the next model is built
+        gc.collect()
+        torch.cuda.empty_cache()
+    del eng
+    free()
+
+    # ------------------------------------------------------ paged serving
+    # the same engine, traffic and control over the block-paged pool (page
+    # 16). 60% of 8 x 64 pages would never run dry here (a request holds
+    # at most (256 + 64) / 16 = 20 pages, 8 slots at most 160), so the pool
+    # is 96 pages, 60% of that peak: the engine must preempt
+    def serve_run(tag, arch, model_cfg, control, path_kernels, **kw):
+        """Serve the 16 requests; every launch count is set to 0 just
+        before the run and read just after, and each kernel of the path
+        must have launched."""
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        t_init = time.perf_counter()
+        e = ServeEngine(arch, model_cfg=model_cfg, num_slots=8, max_len=1024,
+                        param_dtype="bfloat16", control=control,
+                        prefill_chunk=16, device="cuda", **kw)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t_init
+        rq = np.random.default_rng(0)
+        rs = [Request(uid=i, prompt=rq.integers(
+                  0, model_cfg.vocab_size, (int(rq.integers(64, 257)),))
+                  .astype(np.int32), max_new_tokens=64, arrival_step=3 * i)
+              for i in range(16)]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        cs = e.run(rs)
+        torch.cuda.synchronize()
+        wall_ = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        e.close()
+        n_tok_ = sum(len(c.tokens) for c in cs)
+        walls_ = np.asarray([h["wall_s"] for h in e.history])
+        resized_ = sum(1 for h in e.history if h.get("max_bucket", 0) > 0)
+        probs = []
+        if sorted(c.uid for c in cs) != list(range(16)):
+            probs.append("not every request completed")
+        if any(len(c.tokens) != 64 for c in cs):
+            probs.append("a request stopped short of 64 tokens")
+        if any(((c.tokens < 0) | (c.tokens >= model_cfg.vocab_size)).any()
+               for c in cs):
+            probs.append("a token outside the vocabulary")
+        if len({tuple(c.tokens.tolist()) for c in cs}) < 2:
+            probs.append("every request generated the same tokens")
+        for k in path_kernels:
+            if counts[k] <= 0:
+                probs.append(f"{k} never launched")
+        if resized_ == 0:
+            probs.append("no step ran a resized plan")
+        say(tag, f"16 requests, {n_tok_} tokens, {len(e.history)} steps in "
+            f"{wall_:.2f} s wall (engine built in {t_init:.1f} s): "
+            f"{n_tok_ / wall_:.1f} tokens/s wall; step wall p50 "
+            f"{np.percentile(walls_, 50) * 1e3:.2f} ms, p95 "
+            f"{np.percentile(walls_, 95) * 1e3:.2f} ms; preemptions "
+            f"{e.preemptions}; kv cache {e.kv_cache_bytes() / 2**20:.1f} "
+            f"MiB; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"{resized_} steps ran a resized plan; launches "
+            f"{({k: v for k, v in counts.items() if v})}")
+        return e, {c.uid: c.tokens.tolist() for c in cs}, counts, probs
+
+    def agreement(a, b):
+        return sum(a[u] == b[u] for u in a) / len(a)
+
+    eng, paged_tokens, paged_launches, problems = serve_run(
+        "paged-serve", "yi-6b", full, control,
+        ("block_pruned_matmul", "fused_pruned_ffn",
+         "fused_paged_decode_attention"), page_size=16, num_pages=96)
+    if eng.preemptions < 1:
+        problems.append("the paged run never preempted")
+    say("paged-serve", f"requests whose tokens agree with the slot-cache "
+        f"run: {agreement(paged_tokens, yi_tokens):.3f} (bf16 on the card; "
+        "information only)")
+    if problems:
+        raise SystemExit(f"paged serve check failed: {problems}")
+    del eng
+    free()
+
+    # ------------------------------------------------------ MLA + MoE
+    # full-width DeepSeek-V2-Lite (27 layers: a dense first layer, 26 MoE
+    # layers of 64 routed experts top-6 + 2 shared; MLA with a 512-wide
+    # latent; bf16, random weights from the seed), the same traffic and
+    # control, over the slot cache (#5) and over the paged pool (#6). The
+    # pool holds the traffic's peak of 8 x 20 pages, so the paged run
+    # never preempts and both runs step through the same plans: their
+    # tokens compare #5 with #6 (one body, rows split alike). The controlled
+    # block is 64: the dense layer's 10944-wide FFN has no 128-wide
+    # blocks (10944 = 64 x 171)
+    control_ds = ControlConfig(mode="zero", hetero_kind="contention",
+                               chi=4.0, sim_ranks=8, block_size=64,
+                               fused_attention=True, use_kernel=True, seed=0)
+    eng, ds_fixed_tokens, mla_launches, problems = serve_run(
+        "mla-serve", "deepseek-v2-lite-16b", ds_full, control_ds,
+        ("fused_pruned_ffn", "fused_mla_decode_attention"))
+    if problems:
+        raise SystemExit(f"MLA serve (slot cache) check failed: {problems}")
+    del eng
+    free()
+    eng, ds_paged_tokens, mla_paged_launches, problems = serve_run(
+        "mla-serve", "deepseek-v2-lite-16b", ds_full, control_ds,
+        ("fused_pruned_ffn", "fused_paged_mla_decode_attention"),
+        page_size=16, num_pages=160)
+    say("mla-serve", f"requests whose tokens agree between the slot-cache "
+        f"and the paged run: {agreement(ds_paged_tokens, ds_fixed_tokens):.3f}"
+        " (information only)")
+    if problems:
+        raise SystemExit(f"MLA serve (paged) check failed: {problems}")
+
+    # ------------------------------------------------------ MLA profile
+    # where a DeepSeek decode step's time goes: 8 fresh requests on the
+    # paged engine, 8 decode-only steps under the profiler
+    for i in range(8):
+        eng.submit(Request(uid=2000 + i, prompt=rng.integers(
+            0, ds_full.vocab_size, (16,)).astype(np.int32),
+            max_new_tokens=24, arrival_step=eng.step_count))
+    for _ in range(4):
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            eng.step()
+        torch.cuda.synchronize()
+        mwall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
+    mrows = kernel_times(prof)
+    mdev_ms = sum(r[2] for r in mrows) / n_prof
+
+    def mla_family(name):
+        if "mla_partial" in name or "mla_merge" in name:
+            return "fused_paged_mla_decode_attention (#6)"
+        return family(name)
+    mfams = {}
+    for name, calls, ms in mrows:
+        f = mfams.setdefault(mla_family(name), [0, 0.0])
+        f[0] += calls
+        f[1] += ms
+    say("mla-profile", f"deepseek-v2-lite decode-only step (paged), 8 active "
+        f"slots: wall {mwall_ms:.2f} ms/step, device kernels {mdev_ms:.2f} "
+        f"ms/step, device busy {mdev_ms / mwall_ms:.1%} (idle "
+        f"{1 - mdev_ms / mwall_ms:.1%})")
+    for fam, (calls, ms) in sorted(mfams.items(), key=lambda kv: -kv[1][1]):
+        say("mla-profile", f"  {fam}: {ms / n_prof:.3f} ms/step, "
+            f"{calls / n_prof:.0f} kernels/step")
+    for name, calls, ms in mrows[:8]:
+        say("mla-profile", f"  top: {ms / n_prof:.3f} ms/step, "
+            f"{calls / n_prof:.0f}/step  {name[:90]}")
+    del eng
+    free()
 
     # ---------------------------------------------------------------- 6
     # the backward family (#8-#12) at the shapes the ViT-1B train run
@@ -940,13 +1395,21 @@ def main():
     # launches: the serving kernels from the serve run (phase 4), the
     # backward family from the train run (phase 8)
     kernels = []
+    # launches of each kernel from the run of its path: #1-#3 the Yi-6B
+    # slot-cache serve (phase 4), #4 the paged Yi-6B serve, #5 / #6 the
+    # DeepSeek slot-cache / paged serves, #8-#12 the train run (phase 8)
+    launch_source = {"fused_paged_decode_attention": paged_launches,
+                     "fused_mla_decode_attention": mla_launches,
+                     "fused_paged_mla_decode_attention": mla_paged_launches}
     for name in ("fused_decode_attention", "block_pruned_matmul",
-                 "fused_pruned_ffn", "pruned_matmul_dx", "pruned_matmul_dw",
-                 "outpruned_matmul", "outpruned_matmul_dx",
-                 "outpruned_matmul_dw"):
+                 "fused_pruned_ffn", "fused_paged_decode_attention",
+                 "fused_mla_decode_attention",
+                 "fused_paged_mla_decode_attention", "pruned_matmul_dx",
+                 "pruned_matmul_dw", "outpruned_matmul",
+                 "outpruned_matmul_dx", "outpruned_matmul_dw"):
         k = per_kernel[name]
-        n_launch = (launches if name in serve_kernels else
-                    train_launches)[name]
+        n_launch = launch_source.get(
+            name, launches if name in serve_kernels else train_launches)[name]
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],
                         "launches": int(n_launch),

@@ -1,7 +1,12 @@
 """Parameters between the JAX package's pytrees and this port's modules.
 
 The JAX models keep their layers stacked: every leaf under
-``params["stack"]["scan"][0]`` has a leading ``[L, ...]`` layer axis.
+``params["stack"]["scan"][0]`` has a leading ``[repeat, ...]`` layer
+axis, after an unstacked ``"prefix"`` list of dense first layers where
+the model has one (DeepSeek-V2's). Attention leaves are GQA's (``wq``,
+``wk``, ``wv``, ``wo``, biases) or MLA's (``wq``, ``w_dkv``, ``w_kr``,
+``w_uk``, ``w_uv``, ``wo``); an FFN is ``ffn`` or ``moe`` (``router``,
+``w_up`` / ``w_gate`` / ``w_down`` [E, ...], ``shared.*``).
 :func:`params_from_jax` (the LM) and :func:`vit_params_from_jax` (ViT)
 take such a tree as numpy arrays (for example
 ``jax.tree.map(np.asarray, params)``) and unstack it into the port's
@@ -23,10 +28,6 @@ from repro_torch.models import lm as lm_lib
 from repro_torch.models import vit as vit_lib
 from repro_torch.optim import adamw as adamw_lib
 
-_ATTN = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
-_FFN = ("w_up", "w_down", "w_gate")
-
-
 def _set(param: torch.nn.Parameter, value: np.ndarray, what: str) -> None:
     value = np.asarray(value)
     if tuple(param.shape) != value.shape:
@@ -37,39 +38,85 @@ def _set(param: torch.nn.Parameter, value: np.ndarray, what: str) -> None:
                     .to(param.dtype))
 
 
+def _leaf_paths(tree, prefix=()):
+    """Dotted paths of a nested dict's leaves."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_paths(v, prefix + (k,))
+    else:
+        yield ".".join(prefix)
+
+
+def _at(tree, path: str):
+    for part in path.split("."):
+        tree = tree[part]
+    return tree
+
+
+def _load_block(blk, tree, i: int) -> None:
+    """One block's parameters from its nested dict (``attn.wq``,
+    ``moe.shared.w_up``, ...); the dict must hold exactly the block's
+    parameters."""
+    names = dict(blk.named_parameters())
+    if set(names) != set(_leaf_paths(tree)):
+        raise ValueError(
+            f"layer {i}: the JAX tree holds {sorted(_leaf_paths(tree))}, the "
+            f"port's block {sorted(names)}")
+    for name, param in names.items():
+        _set(param, _at(tree, name), f"layer {i} {name}")
+
+
 def _load_stack(layers, stack: Dict[str, Any]) -> None:
-    if set(stack) != {"scan"} or len(stack["scan"]) != 1:
-        raise ValueError("the bridge covers one scanned layer pattern; got "
-                         f"stack keys {sorted(stack)}")
+    """The reference's ``{"prefix": [...], "scan": (group,)}`` stack (one
+    repeated block per group, leaves with a leading [repeat] axis) into
+    the port's per-layer blocks, in layer order."""
+    prefix = list(stack.get("prefix", []))
+    if set(stack) - {"prefix", "scan"} or len(stack["scan"]) != 1:
+        raise ValueError("the bridge covers a dense prefix and one scanned "
+                         f"layer pattern; got stack keys {sorted(stack)}")
     scan = stack["scan"][0]
     for i, blk in enumerate(layers):
-        _set(blk.norm1, scan["norm1"][i], f"layer {i} norm1")
-        _set(blk.norm2, scan["norm2"][i], f"layer {i} norm2")
-        for name in _ATTN:
-            if name in scan["attn"]:
-                _set(getattr(blk.attn, name), scan["attn"][name][i],
-                     f"layer {i} attn.{name}")
-        for name in _FFN:
-            if name in scan["ffn"]:
-                _set(getattr(blk.ffn, name), scan["ffn"][name][i],
-                     f"layer {i} ffn.{name}")
+        if i < len(prefix):
+            tree = prefix[i]
+        else:
+            j = i - len(prefix)
+            tree = _unstack(scan, j)
+        _load_block(blk, tree, i)
+
+
+def _unstack(tree, j: int):
+    if isinstance(tree, dict):
+        return {k: _unstack(v, j) for k, v in tree.items()}
+    return np.asarray(tree)[j]
 
 
 def _arr(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().cpu().numpy()
 
 
-def _dump_stack(layers) -> Dict[str, Any]:
-    def stacked(get):
-        return np.stack([_arr(get(b)) for b in layers])
+def _block_tree(blk) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for name, param in blk.named_parameters():
+        *path, leaf = name.split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = _arr(param)
+    return out
 
-    attn = {name: stacked(lambda b, n=name: getattr(b.attn, n))
-            for name in _ATTN if hasattr(layers[0].attn, name)}
-    ffn = {name: stacked(lambda b, n=name: getattr(b.ffn, n))
-           for name in _FFN if getattr(layers[0].ffn, name) is not None}
-    return {"scan": ({"norm1": stacked(lambda b: b.norm1),
-                      "norm2": stacked(lambda b: b.norm2),
-                      "attn": attn, "ffn": ffn},)}
+
+def _stacked(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stacked([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def _dump_stack(layers, num_prefix: int = 0) -> Dict[str, Any]:
+    trees = [_block_tree(b) for b in layers]
+    out: Dict[str, Any] = {"scan": (_stacked(trees[num_prefix:]),)}
+    if num_prefix:
+        out["prefix"] = trees[:num_prefix]
+    return out
 
 
 def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
@@ -86,9 +133,10 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
 
 def params_to_numpy(p: lm_lib.LM) -> Dict[str, Any]:
     """The port's LM -> the JAX tree layout, as float32 numpy arrays
-    (layer leaves stacked on a leading [L] axis)."""
+    (the dense prefix as a list, the repeated layers' leaves stacked on a
+    leading axis)."""
     out = {"embed": _arr(p.embed), "norm_f": _arr(p.norm_f),
-           "stack": _dump_stack(p.layers)}
+           "stack": _dump_stack(p.layers, p.num_prefix_layers)}
     if p.head is not None:
         out["head"] = _arr(p.head)
     return out

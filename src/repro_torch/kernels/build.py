@@ -25,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("gqa_decode_attn.cu", "block_pruned_matmul.cu",
-           "fused_pruned_ffn.cu", "pruned_grad.cu")
+           "fused_pruned_ffn.cu", "pruned_grad.cu",
+           "gqa_paged_decode_attn.cu", "mla_decode_attn.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -38,6 +39,14 @@ _F = ctypes.c_float
 SIGNATURES = {
     "repro_gqa_decode_attn": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, _F, _I, _I, _I, _P),
+    "repro_gqa_paged_decode_attn": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                    _I, _I, _P),
+    "repro_mla_decode_attn": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _F, _I, _I, _P),
+    "repro_mla_paged_decode_attn": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                                    _P),
     "repro_block_pruned_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _P),
     "repro_pruned_ffn_hidden": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -13,27 +13,32 @@ errors, then dispatches on where its tensors lie:
   accumulation, the same casts) and is what the CPU tests hold against
   the JAX package.
 
-Kernels (see each source's header for what bounds it on the H100):
+Kernels (see each source's header for what bounds it on the H100), as
+wrapper: CUDA source (under ``csrc/``) <- the TPU kernel it replaces
+(under ``src/repro/kernels/``):
 
-========================  ==============================  ==========================================
-wrapper                   CUDA source                     TPU kernel it replaces
-========================  ==============================  ==========================================
-block_pruned_matmul       csrc/block_pruned_matmul.cu     kernels/pruned_matmul.py:block_pruned_matmul_2d
-fused_pruned_ffn          csrc/fused_pruned_ffn.cu (+ the kernels/pruned_matmul.py:fused_ffn_2d
-                          block-pruned product)
-fused_decode_attention    csrc/gqa_decode_attn.cu         kernels/decode_attn.py:gqa_decode_attn_2d
-pruned_matmul_dx          csrc/pruned_grad.cu             kernels/pruned_matmul.py:pruned_matmul_dx_2d
-pruned_matmul_dw          csrc/pruned_grad.cu             kernels/pruned_matmul.py:pruned_matmul_dw_2d
-outpruned_matmul          csrc/pruned_grad.cu             kernels/pruned_matmul.py:outpruned_matmul_2d
-outpruned_matmul_dx       csrc/pruned_grad.cu             kernels/pruned_matmul.py:outpruned_matmul_dx_2d
-outpruned_matmul_dw       csrc/pruned_grad.cu             kernels/pruned_matmul.py:outpruned_matmul_dw_2d
-========================  ==============================  ==========================================
+* block_pruned_matmul: block_pruned_matmul.cu <-
+  pruned_matmul.py:block_pruned_matmul_2d
+* fused_pruned_ffn: fused_pruned_ffn.cu (+ the block-pruned product) <-
+  pruned_matmul.py:fused_ffn_2d
+* fused_decode_attention: gqa_decode_attn.cu <-
+  decode_attn.py:gqa_decode_attn_2d
+* fused_paged_decode_attention: gqa_paged_decode_attn.cu (the design of
+  the one above, rows read through the page table) <-
+  decode_attn.py:gqa_paged_decode_attn_2d
+* fused_mla_decode_attention: mla_decode_attn.cu <-
+  decode_attn.py:mla_decode_attn_2d
+* fused_paged_mla_decode_attention: mla_decode_attn.cu (the same body) <-
+  decode_attn.py:mla_paged_decode_attn_2d
+* pruned_matmul_dx, pruned_matmul_dw, outpruned_matmul,
+  outpruned_matmul_dx, outpruned_matmul_dw: pruned_grad.cu <-
+  pruned_matmul.py:<name>_2d
 
 ``block_pruned_matmul`` and ``fused_pruned_ffn`` are
 ``torch.autograd.Function``s whose backward runs the last five kernels,
 as the reference's custom VJPs run its backward Pallas kernels (on CPU
 tensors, their plain versions). The decode attention defines no
-gradient.
+gradient, and neither do the paged and MLA decode attentions.
 """
 from __future__ import annotations
 
@@ -182,15 +187,17 @@ def _check_slots(what: str, idx: torch.Tensor, kb: int, nb: int) -> None:
             f"{idx.shape[0]} over {nb} blocks (need 1 <= kb <= len <= nb)")
 
 
-def _out(out, shape, like):
+def _out(out, shape, like, dtype=None):
     """The caller's output buffer (checked), or a fresh torch.empty: the
-    kernels write every element, zeros included."""
+    kernels write every element, zeros included. ``dtype`` defaults to
+    ``like``'s."""
+    dtype = dtype or like.dtype
     if out is None:
-        return torch.empty(shape, dtype=like.dtype, device=like.device)
-    if tuple(out.shape) != tuple(shape) or out.dtype != like.dtype \
+        return torch.empty(shape, dtype=dtype, device=like.device)
+    if tuple(out.shape) != tuple(shape) or out.dtype != dtype \
             or out.device != like.device or not out.is_contiguous():
         raise ValueError(
-            f"out must be a contiguous {like.dtype} tensor of shape "
+            f"out must be a contiguous {dtype} tensor of shape "
             f"{tuple(shape)} on {like.device}, got {out.dtype} "
             f"{tuple(out.shape)} on {out.device}")
     return out
@@ -675,6 +682,69 @@ def _check_decode_attn(q, k_cache, v_cache, cur_pos):
             f"be [{B}] (one ragged position per slot)")
 
 
+def _decode_scratch(rows: int, width: int, device):
+    """f32 split scratch: (m, l) of ``rows`` entries each and the
+    ``rows`` x ``width`` accumulators."""
+    part_ml = torch.empty((2, rows), dtype=torch.float32, device=device)
+    part_acc = torch.empty((rows * width,), dtype=torch.float32,
+                           device=device)
+    return part_ml, part_acc
+
+
+def _check_widths(what: str, **pairs) -> None:
+    """Before a launch: each (name -> (width, expected)) must agree, or
+    the kernel would read past a row."""
+    for name, (got, want) in pairs.items():
+        if got != want:
+            raise ValueError(f"{what}: {name} is {got}, expected {want}")
+
+
+def _int32_on(t: torch.Tensor, dev, what: str, name: str) -> torch.Tensor:
+    if t.device != dev:
+        raise ValueError(f"{what}: {name} lies on {t.device}, q on {dev}")
+    return t.to(torch.int32).contiguous()
+
+
+def _gqa_attend(qg, k, v, ok, scale):
+    """Masked f32 softmax attention shared by the GQA plain versions:
+    qg [B, Hkv, G, D], k / v [B, Hkv, S, D|Dv], ok [B, S] the rows each
+    slot attends. Rows outside ``ok`` are zeroed before use (a row the
+    kernel never reads may hold anything, NaN included); a slot with no
+    row gets zeros."""
+    okk = ok[:, None, :, None]
+    k = torch.where(okk, k.float(), torch.zeros((), device=k.device))
+    v = torch.where(okk, v.float(), torch.zeros((), device=v.device))
+    s = torch.einsum("bhgd,bhsd->bhgs", qg.float(), k) * scale
+    ok = ok[:, None, None, :]
+    s = torch.where(ok, s, torch.full_like(s, -math.inf))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.where(ok, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhgs,bhsd->bhgd", p, v)
+    return out / torch.clamp(l, min=1e-30)
+
+
+def attended_rows(S: int, cur_pos, window: int = 0, device=None):
+    """[B, S] bool: the rows p <= cur_pos (and > cur_pos - window)."""
+    pos = torch.arange(S, device=device)[None, :]
+    cur = cur_pos.to(torch.int64)[:, None]
+    ok = pos <= cur
+    if window > 0:
+        ok = ok & (pos > cur - window)
+    return ok
+
+
+def paged_attended_rows(pages, ps: int, num_pages: int, cur_pos,
+                   window: int = 0):
+    """[B, pps*ps] bool: the rows a paged kernel attends — in range, and
+    in a page the table holds (an entry -1 or past the pool is absent)."""
+    pg = pages.to(torch.int64)
+    present = ((pg >= 0) & (pg < num_pages)).repeat_interleave(ps, dim=1)
+    return attended_rows(pg.shape[1] * ps, cur_pos, window, pages.device) \
+        & present
+
+
 def gqa_decode_attn_plain(q, k_cache, v_cache, cur_pos,
                           window: int = 0) -> torch.Tensor:
     """The kernel's function in plain PyTorch: f32 scores and softmax
@@ -682,23 +752,10 @@ def gqa_decode_attn_plain(q, k_cache, v_cache, cur_pos,
     no such position gets zeros. q [B, Hq, 1, D] -> [B, Hq, 1, Dv]."""
     B, Hq, _, D = q.shape
     Hkv, S, Dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[3]
-    G = Hq // Hkv
-    scale = 1.0 / math.sqrt(D)
-    qg = q.reshape(B, Hkv, G, D).float()
-    s = torch.einsum("bhgd,bhsd->bhgs", qg, k_cache.float()) * scale
-    pos = torch.arange(S, device=q.device)[None, :]
-    cur = cur_pos.to(torch.int64)[:, None]
-    ok = pos <= cur
-    if window > 0:
-        ok = ok & (pos > cur - window)
-    ok = ok[:, None, None, :]
-    s = torch.where(ok, s, torch.full_like(s, -math.inf))
-    m = s.amax(dim=-1, keepdim=True)
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    p = torch.where(ok, torch.exp(s - m), torch.zeros_like(s))
-    l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhgs,bhsd->bhgd", p, v_cache.float())
-    out = out / torch.clamp(l, min=1e-30)
+    qg = q.reshape(B, Hkv, Hq // Hkv, D)
+    out = _gqa_attend(qg, k_cache, v_cache,
+                      attended_rows(S, cur_pos, window, q.device),
+                      1.0 / math.sqrt(D))
     return out.reshape(B, Hq, 1, Dv).to(q.dtype)
 
 
@@ -718,20 +775,14 @@ def fused_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     B, Hq, _, D = q.shape
     Hkv, S, Dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[3]
     G = Hq // Hkv
-    dt, _ = _kernel_args("fused_decode_attention", (q, k_cache, v_cache))
-    if cur_pos.device != q.device:
-        raise ValueError(
-            f"fused_decode_attention: cur_pos lies on {cur_pos.device}, "
-            f"q on {q.device}")
-    cur = cur_pos.to(torch.int32).contiguous()
+    what = "fused_decode_attention"
+    dt, _ = _kernel_args(what, (q, k_cache, v_cache))
+    cur = _int32_on(cur_pos, q.device, what, "cur_pos")
     qc = q.contiguous()
     kc, vc = k_cache.contiguous(), v_cache.contiguous()
     # split each slot's rows across blocks so that B*Hkv fills the card
     splits = _splits(-(-S // 32), B * Hkv, q.device)
-    part_ml = torch.empty((2, B * Hkv * splits * G), dtype=torch.float32,
-                          device=q.device)
-    part_acc = torch.empty((B * Hkv * splits * G * Dv,), dtype=torch.float32,
-                           device=q.device)
+    part_ml, part_acc = _decode_scratch(B * Hkv * splits * G, Dv, q.device)
     out = torch.empty((B, Hkv, G, Dv), dtype=q.dtype, device=q.device)
     err = _build.library().lib.repro_gqa_decode_attn(
         qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), cur.data_ptr(),
@@ -747,12 +798,273 @@ fused_decode_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# fused GQA decode attention over the paged pool (inference-only)
+# ---------------------------------------------------------------------------
+
+
+def _check_paged_decode_attn(q, k_pool, v_pool, pages, cur_pos):
+    what = "fused_paged_decode_attention"
+    B, Hq, S1, _ = q.shape
+    Hkv, ps = k_pool.shape[1], k_pool.shape[2]
+    if S1 != 1:
+        raise ValueError(
+            f"{what}: q {tuple(q.shape)} must carry exactly one query token")
+    if Hq % Hkv != 0:
+        raise ValueError(f"{what}: Hq={Hq} not a multiple of Hkv={Hkv}")
+    if ps % 8 != 0:
+        raise ValueError(
+            f"{what}: page_size={ps} must be a multiple of 8 (f32 sublane "
+            "tiling) — use the oracle path or pick a multiple-of-8 "
+            "--page-size")
+    if pages.shape[0] != B or tuple(cur_pos.shape) != (B,):
+        raise ValueError(
+            f"{what}: pages {tuple(pages.shape)} / cur_pos "
+            f"{tuple(cur_pos.shape)} do not match q batch {B}")
+    if v_pool.shape[:3] != k_pool.shape[:3]:
+        raise ValueError(f"{what}: pools k {tuple(k_pool.shape)} / v "
+                         f"{tuple(v_pool.shape)} differ")
+
+
+def gqa_paged_decode_attn_plain(q, k_pool, v_pool, pages, cur_pos,
+                                window: int = 0) -> torch.Tensor:
+    """The paged kernel's function in plain PyTorch: slot b's row p is
+    pool page ``pages[b, p // ps]`` at offset ``p % ps``; rows in a page
+    the table does not hold (-1) are skipped, as the kernel skips them,
+    and otherwise as :func:`gqa_decode_attn_plain`."""
+    from repro_torch.layers.attention import gather_paged_kv
+    B, Hq, _, D = q.shape
+    num_pages, Hkv, ps = k_pool.shape[:3]
+    Dv = v_pool.shape[3]
+    qg = q.reshape(B, Hkv, Hq // Hkv, D)
+    ok = paged_attended_rows(pages, ps, num_pages, cur_pos, window)
+    out = _gqa_attend(qg, gather_paged_kv(k_pool, pages),
+                      gather_paged_kv(v_pool, pages), ok,
+                      1.0 / math.sqrt(D))
+    return out.reshape(B, Hq, 1, Dv).to(q.dtype)
+
+
+def fused_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor, *,
+                                 pages: torch.Tensor, cur_pos: torch.Tensor,
+                                 window: int = 0, out=None) -> torch.Tensor:
+    """Fused GQA decode attention over the block-paged KV pool.
+
+    q [B, Hq, 1, D]; pools [num_pages, Hkv, page_size, D] /
+    [num_pages, Hkv, page_size, Dv]; pages int [B, pages_per_slot] (-1 =
+    unallocated); cur_pos [B]. Same ragged-position contract as
+    :func:`fused_decode_attention`; unallocated pages are never read.
+    Returns [B, Hq, 1, Dv] in q.dtype (into ``out`` when given, on the
+    card). Inference-only.
+    """
+    what = "fused_paged_decode_attention"
+    _check_paged_decode_attn(q, k_pool, v_pool, pages, cur_pos)
+    if not q.is_cuda:
+        return gqa_paged_decode_attn_plain(q, k_pool, v_pool, pages,
+                                           cur_pos, window)
+    B, Hq, _, D = q.shape
+    num_pages, Hkv, ps = k_pool.shape[:3]
+    Dv, pps = v_pool.shape[3], pages.shape[1]
+    G = Hq // Hkv
+    _check_widths(what, **{"k_pool head dim": (k_pool.shape[3], D)})
+    dt, _ = _kernel_args(what, (q, k_pool, v_pool))
+    pt = _int32_on(pages, q.device, what, "pages")
+    cur = _int32_on(cur_pos, q.device, what, "cur_pos")
+    splits = _splits(-(-(pps * ps) // 32), B * Hkv, q.device)
+    part_ml, part_acc = _decode_scratch(B * Hkv * splits * G, Dv, q.device)
+    out = _out(out, (B, Hq, 1, Dv), q)
+    err = _build.library().lib.repro_gqa_paged_decode_attn(
+        q.contiguous().data_ptr(), k_pool.contiguous().data_ptr(),
+        v_pool.contiguous().data_ptr(), pt.data_ptr(), cur.data_ptr(),
+        part_ml[0].data_ptr(), part_ml[1].data_ptr(), part_acc.data_ptr(),
+        out.data_ptr(), B, Hkv, G, num_pages, ps, pps, D, Dv,
+        1.0 / math.sqrt(D), int(window), splits, dt, _stream(q.device))
+    _build.check(err, what)
+    fused_paged_decode_attention.launches += 1
+    return out
+
+
+fused_paged_decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fused absorbed-MLA decode attention, slot cache and paged pool
+# (inference-only)
+# ---------------------------------------------------------------------------
+
+
+def _mla_attend(q_abs, q_rope, lat, rope, ok, scale):
+    """Masked f32 absorbed-MLA attention shared by the MLA plain
+    versions: q_abs [B, H, R], q_rope [B, H, Dr], lat [B, S, R], rope
+    [B, S, Dr], ok [B, S]. Rows outside ``ok`` are zeroed before use; a
+    slot with no row gets zeros. Returns f32 [B, H, R]."""
+    okr = ok[:, :, None]
+    lat = torch.where(okr, lat.float(), torch.zeros((), device=lat.device))
+    rope = torch.where(okr, rope.float(),
+                       torch.zeros((), device=rope.device))
+    s = (torch.einsum("bhr,bsr->bhs", q_abs.float(), lat)
+         + torch.einsum("bhd,bsd->bhs", q_rope.float(), rope)) * scale
+    ok = ok[:, None, :]
+    s = torch.where(ok, s, torch.full_like(s, -math.inf))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.where(ok, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhs,bsr->bhr", p, lat) / torch.clamp(l, min=1e-30)
+
+
+def _check_q_rope(what, q_nope_abs, q_rope):
+    B, H, _ = q_nope_abs.shape
+    if tuple(q_rope.shape[:2]) != (B, H):
+        raise ValueError(f"{what}: q_rope {tuple(q_rope.shape)} must lead "
+                         f"with [B={B}, H={H}]")
+
+
+def mla_decode_attn_plain(q_nope_abs, q_rope, latent_cache, rope_cache,
+                          cur_pos, head_dim_for_scale: int) -> torch.Tensor:
+    """The MLA kernel's function in plain PyTorch (f32 out)."""
+    ok = attended_rows(latent_cache.shape[1], cur_pos,
+                  device=q_nope_abs.device)
+    return _mla_attend(q_nope_abs, q_rope, latent_cache, rope_cache, ok,
+                       1.0 / math.sqrt(head_dim_for_scale))
+
+
+def fused_mla_decode_attention(q_nope_abs: torch.Tensor,
+                               q_rope: torch.Tensor,
+                               latent_cache: torch.Tensor,
+                               rope_cache: torch.Tensor, *,
+                               cur_pos: torch.Tensor,
+                               head_dim_for_scale: int,
+                               out=None) -> torch.Tensor:
+    """Fused absorbed-MLA decode attention against the compressed latent.
+
+    Same contract as ``layers.attention.mla_decode_attention``:
+    q_nope_abs [B, H, R]; q_rope [B, H, Dr]; latent_cache [B, S, R];
+    rope_cache [B, S, Dr]; returns f32 [B, H, R] (into ``out`` when
+    given, on the card). Inference-only.
+    """
+    what = "fused_mla_decode_attention"
+    B, H, R = q_nope_abs.shape
+    Dr = q_rope.shape[2]
+    _check_q_rope(what, q_nope_abs, q_rope)
+    if latent_cache.shape[0] != B or \
+            rope_cache.shape[:2] != latent_cache.shape[:2]:
+        raise ValueError(
+            f"{what}: caches latent {tuple(latent_cache.shape)} / rope "
+            f"{tuple(rope_cache.shape)} do not match batch {B}")
+    if tuple(cur_pos.shape) != (B,):
+        raise ValueError(f"{what}: cur_pos {tuple(cur_pos.shape)} must be "
+                         f"[{B}]")
+    if not q_nope_abs.is_cuda:
+        return mla_decode_attn_plain(q_nope_abs, q_rope, latent_cache,
+                                     rope_cache, cur_pos, head_dim_for_scale)
+    S = latent_cache.shape[1]
+    _check_widths(what, **{"latent width": (latent_cache.shape[2], R),
+                           "rope width": (rope_cache.shape[2], Dr)})
+    dt, _ = _kernel_args(what, (q_nope_abs, q_rope, latent_cache,
+                                rope_cache))
+    cur = _int32_on(cur_pos, q_nope_abs.device, what, "cur_pos")
+    splits = _splits(-(-S // 32), B, q_nope_abs.device)
+    part_ml, part_acc = _decode_scratch(B * splits * H, R,
+                                        q_nope_abs.device)
+    out = _out(out, (B, H, R), q_nope_abs, torch.float32)
+    err = _build.library().lib.repro_mla_decode_attn(
+        q_nope_abs.contiguous().data_ptr(), q_rope.contiguous().data_ptr(),
+        latent_cache.contiguous().data_ptr(),
+        rope_cache.contiguous().data_ptr(), cur.data_ptr(),
+        part_ml[0].data_ptr(), part_ml[1].data_ptr(), part_acc.data_ptr(),
+        out.data_ptr(), B, H, R, Dr, S, 1.0 / math.sqrt(head_dim_for_scale),
+        splits, dt, _stream(q_nope_abs.device))
+    _build.check(err, what)
+    fused_mla_decode_attention.launches += 1
+    return out
+
+
+fused_mla_decode_attention.launches = 0
+
+
+def mla_paged_decode_attn_plain(q_nope_abs, q_rope, latent_pool, rope_pool,
+                                pages, cur_pos,
+                                head_dim_for_scale: int) -> torch.Tensor:
+    """The paged MLA kernel's function in plain PyTorch (f32 out): rows
+    in a page the table does not hold are skipped."""
+    from repro_torch.layers.attention import gather_paged_rows
+    num_pages, ps = latent_pool.shape[:2]
+    ok = paged_attended_rows(pages, ps, num_pages, cur_pos)
+    return _mla_attend(q_nope_abs, q_rope,
+                       gather_paged_rows(latent_pool, pages),
+                       gather_paged_rows(rope_pool, pages), ok,
+                       1.0 / math.sqrt(head_dim_for_scale))
+
+
+def fused_paged_mla_decode_attention(q_nope_abs: torch.Tensor,
+                                     q_rope: torch.Tensor,
+                                     latent_pool: torch.Tensor,
+                                     rope_pool: torch.Tensor, *,
+                                     pages: torch.Tensor,
+                                     cur_pos: torch.Tensor,
+                                     head_dim_for_scale: int,
+                                     out=None) -> torch.Tensor:
+    """Fused absorbed-MLA decode attention over the paged latent pool.
+
+    q_nope_abs [B, H, R]; q_rope [B, H, Dr]; pools
+    [num_pages, page_size, R] / [num_pages, page_size, Dr]; pages
+    [B, pages_per_slot] (-1 = unallocated); returns f32 [B, H, R] (into
+    ``out`` when given, on the card). Inference-only.
+    """
+    what = "fused_paged_mla_decode_attention"
+    B, H, R = q_nope_abs.shape
+    Dr = q_rope.shape[2]
+    num_pages, ps = latent_pool.shape[:2]
+    _check_q_rope(what, q_nope_abs, q_rope)
+    if ps % 8 != 0:
+        raise ValueError(
+            f"{what}: page_size={ps} must be a multiple of 8 — use the "
+            "oracle path or a multiple-of-8 --page-size")
+    if pages.shape[0] != B or tuple(cur_pos.shape) != (B,):
+        raise ValueError(
+            f"{what}: pages {tuple(pages.shape)} / cur_pos "
+            f"{tuple(cur_pos.shape)} do not match batch {B}")
+    if not q_nope_abs.is_cuda:
+        return mla_paged_decode_attn_plain(q_nope_abs, q_rope, latent_pool,
+                                           rope_pool, pages, cur_pos,
+                                           head_dim_for_scale)
+    pps = pages.shape[1]
+    _check_widths(what, **{"latent width": (latent_pool.shape[2], R),
+                           "rope width": (rope_pool.shape[2], Dr),
+                           "rope pool pages": (tuple(rope_pool.shape[:2]),
+                                               (num_pages, ps))})
+    dt, _ = _kernel_args(what, (q_nope_abs, q_rope, latent_pool, rope_pool))
+    pt = _int32_on(pages, q_nope_abs.device, what, "pages")
+    cur = _int32_on(cur_pos, q_nope_abs.device, what, "cur_pos")
+    splits = _splits(-(-(pps * ps) // 32), B, q_nope_abs.device)
+    part_ml, part_acc = _decode_scratch(B * splits * H, R,
+                                        q_nope_abs.device)
+    out = _out(out, (B, H, R), q_nope_abs, torch.float32)
+    err = _build.library().lib.repro_mla_paged_decode_attn(
+        q_nope_abs.contiguous().data_ptr(), q_rope.contiguous().data_ptr(),
+        latent_pool.contiguous().data_ptr(),
+        rope_pool.contiguous().data_ptr(), pt.data_ptr(), cur.data_ptr(),
+        part_ml[0].data_ptr(), part_ml[1].data_ptr(), part_acc.data_ptr(),
+        out.data_ptr(), B, H, R, Dr, num_pages, ps, pps,
+        1.0 / math.sqrt(head_dim_for_scale), splits, dt,
+        _stream(q_nope_abs.device))
+    _build.check(err, what)
+    fused_paged_mla_decode_attention.launches += 1
+    return out
+
+
+fused_paged_mla_decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # launch counts
 # ---------------------------------------------------------------------------
 
 KERNEL_WRAPPERS = (block_pruned_matmul, fused_pruned_ffn,
                    fused_decode_attention, pruned_matmul_dx, pruned_matmul_dw,
-                   outpruned_matmul, outpruned_matmul_dx, outpruned_matmul_dw)
+                   outpruned_matmul, outpruned_matmul_dx, outpruned_matmul_dw,
+                   fused_paged_decode_attention, fused_mla_decode_attention,
+                   fused_paged_mla_decode_attention)
 
 
 def launch_counts() -> dict:

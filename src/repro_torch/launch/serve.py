@@ -8,6 +8,13 @@ What it does, as the reference:
   arrival step has passed.
 * **Slot-based KV cache** — one cache padded to ``num_slots``, each slot
   at its own position; a recycled slot's rows are zeroed on admission.
+* **Paged KV pool** (``page_size > 0``) — attention cache leaves live in
+  a shared ``[num_pages, page_size, ...]`` pool addressed through a
+  host-side page table (``core/paging.py``); each step grows the slots'
+  page lists to cover its writes, preempting the most recently admitted
+  other slot (its request goes back to the front of the queue) when the
+  pool runs dry. ``kv_int8`` keeps the GQA pools in int8 with per-row
+  f32 scales (oracle attention only).
 * **Chunked prefill** — every step feeds each active slot either up to
   ``prefill_chunk`` teacher-forced prompt positions or one greedy decode
   token, as ``[C, num_slots]`` substeps of one engine step; lanes with
@@ -23,14 +30,17 @@ iteration-time model (``peak_flops`` is a host-CPU calibration), exactly
 as in the reference; the host wall time of each step is reported beside
 them as ``wall_s``.
 
-This slice runs ``tp == 1`` with the fixed slot cache. Paging, int8 K/V,
-a ragged shard geometry, checkpoint loading, ``tp > 1`` and the
-migration modes raise ``NotImplementedError`` naming the slice that
-brings them.
+The engine runs ``tp == 1`` — dense GQA models (Yi-6B) and DeepSeek-V2
+(MLA + MoE), over the slot cache or the paged pool. A ragged shard
+geometry, checkpoint loading, ``tp > 1`` and the migration modes raise
+``NotImplementedError`` naming the slice that brings them.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
         --control zero --hetero contention --chi 4 --sim-ranks 8 \\
         --fused-attn --use-kernel
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v2-lite-16b --page-size 8 --num-pages 12 \\
+        --control zero --hetero contention --sim-ranks 8 --fused-attn
 """
 from __future__ import annotations
 
@@ -51,7 +61,6 @@ from repro_torch.core import paging as paging_lib
 from repro_torch.layers.tp_linear import GEOMETRY_SLICE, ControlContext
 from repro_torch.models import lm as lm_lib
 
-PAGED_SLICE = "the paged serving slice (ROADMAP.md, queue A)"
 CHECKPOINT_SLICE = ("the checkpoint slice (ROADMAP.md, queue A: "
                     "checkpoint/store.py, then the serve engine's ckpt_dir)")
 SERVE_TP_SLICE = ("a later slice (ROADMAP.md, queue A: the serve engine at "
@@ -192,6 +201,14 @@ def _merge_invalid(old, new, cache_ax, valid: torch.Tensor):
 class ServeEngine:
     """Continuous-batching decode engine over a fixed slot set.
 
+    ``page_size`` > 0 switches the KV cache to the block-paged pool
+    (``num_pages`` defaults to full fixed-cache capacity; pass less to
+    hold more resident slots than the pool could serve at max_len — the
+    engine preempts on exhaustion). ``prefill_chunk`` teacher-forces up
+    to that many prompt tokens per engine step. ``kv_int8`` stores the
+    GQA K/V pool in int8 with per-row f32 scales (not bit-exact; oracle
+    attention only).
+
     Differences from the reference's constructor: ``device`` (default
     ``"cuda"``; the tests pass ``"cpu"``) and ``model_cfg``, which, when
     given, replaces the ``smoke_variant(get_config(arch))`` the engine
@@ -211,9 +228,6 @@ class ServeEngine:
                  model_cfg: Optional[ModelConfig] = None):
         self.control = control or ControlConfig()
         c = self.control
-        if page_size > 0 or kv_int8 or num_pages is not None:
-            raise NotImplementedError(
-                f"the paged KV pool and int8 K/V come with {PAGED_SLICE}")
         if c.geometry is not None:
             raise NotImplementedError(
                 f"a ragged shard geometry comes with {GEOMETRY_SLICE}")
@@ -240,7 +254,26 @@ class ServeEngine:
         self.tp = tp
         self.max_queue = max_queue
         dtype = _DTYPES[param_dtype]
+
+        # ---- paged KV layout + chunked prefill (the reference's checks) --
+        if kv_int8 and not page_size:
+            raise ValueError("kv_int8 requires the paged cache "
+                             "(--page-size > 0)")
+        self.paging = (paging_lib.paged_layout(
+            max_len, page_size, num_slots, num_pages=num_pages,
+            kv_int8=kv_int8) if page_size else None)
+        if self.paging is not None and c.fused_attention:
+            if kv_int8:
+                raise ValueError("kv_int8 has no fused-kernel path; drop "
+                                 "--fused-attn (oracle dequant attention)")
+            if page_size % 8:
+                raise ValueError(f"--page-size {page_size} must be a "
+                                 "multiple of 8 for the fused paged "
+                                 "kernel (f32 sublane tiling)")
+        self.alloc = (paging_lib.PageAllocator(self.paging, num_slots)
+                      if self.paging is not None else None)
         self.prefill_chunk = max(1, int(prefill_chunk))
+        self.preemptions = 0
 
         wc = c.to_workload()
         self._wc = wc
@@ -248,7 +281,7 @@ class ServeEngine:
         # model-level switch (the dense ctx=None path takes it too)
         self._step_cfg = (dataclasses.replace(self.cfg, fused_decode_attn=True)
                           if wc.fused_attention else self.cfg)
-        self._cache_ax = lm_lib.cache_axes(self.cfg)
+        self._cache_ax = lm_lib.cache_axes(self.cfg, paging=self.paging)
         step_cfg, cache_ax, dev = self._step_cfg, self._cache_ax, self.device
         invalid_pos = int(paging_lib.INVALID_POS)
 
@@ -258,11 +291,15 @@ class ServeEngine:
                     static,
                     scope_blocks=scopes_lib.scope_block_table(self.cfg, static))
 
-            def stepper(params, cache, tokens, pos, valid, clear, plan=None):
+            def stepper(params, cache, tokens, pos, valid, clear, plan=None,
+                        pages=None):
                 # tokens/pos/valid are host [C, num_slots] arrays: C
                 # chunked-prefill substeps of one engine step (C=1 is the
-                # plain decode step); clear marks slots recycled this step
+                # plain decode step); clear marks slots recycled this step;
+                # pages is the host page table of a paged engine
                 _clear_slots(cache, cache_ax, clear)
+                pages_d = (None if pages is None
+                           else torch.as_tensor(pages).to(dev))
                 ctx = (ControlContext(
                     static=static, bucket_by_rank=plan["bucket_by_rank"],
                     pri=plan["pri"], use_kernel=wc.use_kernel)
@@ -281,7 +318,8 @@ class ServeEngine:
                 n_sub = int((valid > 0.0).sum(axis=0).max(initial=0))
                 for i in range(n_sub):
                     logits, nc = lm_lib.decode_step(
-                        params, step_cfg, cache, tok_d[i], pos_d[i], ctx=ctx)
+                        params, step_cfg, cache, tok_d[i], pos_d[i], ctx=ctx,
+                        pages=pages_d)
                     cache = _merge_invalid(cache, nc, cache_ax, valid_d[i])
                     # greedy argmax on the device: only [C, num_slots]
                     # token ids cross to the host
@@ -297,7 +335,9 @@ class ServeEngine:
             max(self.sim_ranks, 1), peak_flops=c.peak_flops, mfu=c.mfu)
         self.overhead = (hetero_lib.decode_overhead_model(
             self.cfg, num_slots, max_len, self.it_model,
-            peak_flops=c.peak_flops, tile=128)
+            peak_flops=c.peak_flops,
+            tile=(self.paging.page_size if self.paging is not None
+                  else 128))
             if c.model_decode_overheads else None)
         self.plane = ControlPlane(
             self.cfg, wc, tp=tp, builder=_build, device=self.device,
@@ -320,7 +360,7 @@ class ServeEngine:
         # a plain assignable attribute: callers may install other weights
         self.params = lm_lib.init(gen, self.cfg, dtype, self.device)
         self.cache = lm_lib.init_cache(self.cfg, num_slots, max_len, dtype,
-                                       self.device)
+                                       self.device, paging=self.paging)
 
         # ---- host-side state ---------------------------------------------
         self.queue: collections.deque = collections.deque()
@@ -353,9 +393,13 @@ class ServeEngine:
 
     def try_submit(self, req: Request) -> bool:
         """Non-blocking admission: ``False`` means NOTHING was enqueued
-        (queue at ``max_queue``, or a request that can never fit)."""
+        (queue at ``max_queue``, or a request that can never fit: past
+        ``max_len``, or more pages than the whole pool holds)."""
         need = len(req.prompt) + req.max_new_tokens
         if len(req.prompt) == 0 or need > self.max_len:
+            return False
+        if self.paging is not None \
+                and self.paging.pages_for(need) > self.paging.num_pages:
             return False
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             return False
@@ -370,6 +414,9 @@ class ServeEngine:
                 self._eligible_clock.setdefault(req.uid, self.clock)
         while self.free and self.queue \
                 and self.queue[0].arrival_step <= self.step_count:
+            if self.alloc is not None \
+                    and not self.alloc.can_fit(len(self.queue[0].prompt)):
+                break          # pool can't hold the prompt; wait for frees
             req = self.queue.popleft()
             slot = self.free.pop()
             t0 = self._eligible_clock.pop(req.uid, self.clock)
@@ -381,10 +428,67 @@ class ServeEngine:
             admitted.append(req.uid)
         return admitted, clear
 
+    # -- page-pool bookkeeping (paged engine only) ---------------------------
+    def _planned_feed(self, s: _Slot) -> int:
+        """Positions this slot writes THIS step: a prefill chunk or one
+        decode token."""
+        P = len(s.req.prompt)
+        return min(self.prefill_chunk, P - s.pos) if s.pos < P else 1
+
+    def _preempt(self, slot: int) -> int:
+        """Evict a slot back to the FRONT of the queue, returning its
+        pages. Greedy decode regenerates the same tokens on re-admission;
+        the TTFT clock is restored to the original eligibility time."""
+        s = self.slots[slot]
+        self.alloc.free_slot(slot)
+        self.slots[slot] = None
+        self.free.append(slot)
+        self.queue.appendleft(s.req)
+        self._eligible_clock[s.req.uid] = s.t_elig
+        self.preemptions += 1
+        return s.req.uid
+
+    def _ensure_pages(self) -> list:
+        """Grow each active slot's page list to cover this step's writes,
+        preempting the most recently admitted other slot on exhaustion
+        (oldest requests keep their pages). Returns the uids preempted
+        this step."""
+        preempted = []
+        order = sorted(
+            (i for i, s in enumerate(self.slots) if s is not None),
+            key=lambda i: (self.slots[i].admitted_step, i))
+        for i in order:
+            s = self.slots[i]
+            if s is None:                      # preempted earlier this pass
+                continue
+            while not self.alloc.ensure(i, s.pos + self._planned_feed(s) - 1):
+                victims = [j for j, v in enumerate(self.slots)
+                           if v is not None and j != i]
+                if not victims:
+                    raise RuntimeError(
+                        f"page pool exhausted: slot {i} (uid "
+                        f"{s.req.uid}) needs a page and no other slot "
+                        "can be preempted — the pool is too small for a "
+                        "single request")
+                victim = max(victims,
+                             key=lambda j: (self.slots[j].admitted_step, j))
+                preempted.append(self._preempt(victim))
+        return preempted
+
+    def kv_cache_bytes(self) -> int:
+        """Total bytes of the engine's cache tree (K/V pools or slot rows,
+        int8 scales, MLA latents)."""
+        return int(sum(leaf.numel() * leaf.element_size()
+                       for leaf, _ in _tree_leaves_with_axes(
+                           self.cache, self._cache_ax)))
+
     # -- one decode step -----------------------------------------------------
     def step(self) -> Dict:
-        """Admit, run one engine step over all slots, harvest."""
+        """Admit, run one engine step over all slots, harvest. On the
+        paged engine, page lists first grow to cover this step's writes,
+        preempting the newest-admitted slot when the pool runs dry."""
         admitted, clear = self._admit()
+        preempted = self._ensure_pages() if self.alloc is not None else []
 
         C = self.prefill_chunk
         B = self.num_slots
@@ -438,9 +542,10 @@ class ServeEngine:
 
         self.plane.timer.start()
         with torch.inference_mode():
-            tok_ids, self.cache = step_fn(self.params, self.cache, tokens_cb,
-                                          pos_cb, valid_cb, clear,
-                                          plan_arrays)
+            tok_ids, self.cache = step_fn(
+                self.params, self.cache, tokens_cb, pos_cb, valid_cb, clear,
+                plan_arrays, pages=(self.alloc.table()
+                                    if self.alloc is not None else None))
         wall = self.plane.timer.stop(tok_ids)
         nxt = tok_ids.cpu().numpy()           # [C, num_slots]
         overhead = 0.0
@@ -490,6 +595,8 @@ class ServeEngine:
                 self._eligible_clock.pop(s.req.uid, None)
                 self.slots[i] = None
                 self.free.append(i)
+                if self.alloc is not None:
+                    self.alloc.free_slot(i)
             else:
                 s.next_token = tok
 
@@ -498,6 +605,8 @@ class ServeEngine:
                   "active": sum(s is not None for s in self.slots),
                   "admitted": admitted, "completed": completed,
                   "queued": len(self.queue)}
+        if preempted:
+            report["preempted"] = preempted
         if self.overhead is not None:
             report["overhead_s"] = overhead
             report["occupancy"] = float(
@@ -524,7 +633,9 @@ class ServeEngine:
         runs)."""
         admissible = bool(
             self.free and self.queue
-            and self.queue[0].arrival_step <= self.step_count)
+            and self.queue[0].arrival_step <= self.step_count
+            and (self.alloc is None
+                 or self.alloc.can_fit(len(self.queue[0].prompt))))
         if admissible or any(s is not None for s in self.slots):
             return self.step()
         for req in self.queue:
@@ -562,7 +673,9 @@ class ServeEngine:
             step=self.step_count, clock=self.clock,
             queue_depth=len(self.queue),
             active=sum(s is not None for s in self.slots),
-            free_slots=len(self.free), free_pages=None,
+            free_slots=len(self.free),
+            free_pages=(self.alloc.free_pages if self.alloc is not None
+                        else None),
             num_slots=self.num_slots,
             chi=cap.chi, work_frac=cap.work_frac,
             step_time_s=cap.step_time_s,
@@ -676,6 +789,16 @@ def main(argv=None):
                     help="record a replayable telemetry trace here (JSONL)")
     ap.add_argument("--prefill-chunk", type=int, default=1,
                     help="prompt positions fed per step during prefill")
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="block-paged KV cache page size in tokens "
+                         "(0 = fixed per-slot cache); with --fused-attn "
+                         "must be a multiple of 8")
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="pages in the shared pool (default: every slot "
+                         "at max_len); fewer makes the engine preempt")
+    ap.add_argument("--kv-int8", action="store_true",
+                    help="int8-quantize the paged K/V pools (per-row "
+                         "scales; oracle attention path only)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda unless you ask for cpu)")
     args = ap.parse_args(argv)
@@ -686,7 +809,9 @@ def main(argv=None):
         fused_attention=args.fused_attn, times=args.times, trace_in=args.trace_in, trace_out=args.trace_out)
     eng = ServeEngine(args.arch, num_slots=args.slots,
                       max_len=args.prompt_len + args.gen_len, tp=args.tp,
-                      control=control, prefill_chunk=args.prefill_chunk,
+                      control=control, page_size=args.page_size,
+                      prefill_chunk=args.prefill_chunk,
+                      kv_int8=args.kv_int8, num_pages=args.num_pages,
                       device=args.device)
     rng = np.random.default_rng(0)
     reqs = [Request(uid=i,
@@ -709,7 +834,8 @@ def main(argv=None):
           f"{stats['p50_ms']:.2f}/{stats['p95_ms']:.2f}/"
           f"{stats['p99_ms']:.2f} ms, {stats['tok_per_s']:.1f} tok/s "
           "(modeled clock)")
-    print(f"plan builds: {eng.plane.counts()}")
+    print(f"plan builds: {eng.plane.counts()}; preemptions "
+          f"{eng.preemptions}")
 
 
 if __name__ == "__main__":

@@ -219,3 +219,113 @@ def test_cuda_controlled_train_step_kernel_vs_plain(cuda_device):
                  "outpruned_matmul_dx", "outpruned_matmul_dw"):
         assert counts[name] > 0, name
     assert set(plain_counts.values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# the paged and MLA decode attentions (#4-#6)
+# ---------------------------------------------------------------------------
+
+
+def _paged_case(g, device, cur, ps, pps, num_pages):
+    """A shuffled page table holding each slot's pages up to its cur_pos
+    (two trailing -1 entries for a lane past the table), and the mask of
+    the pool pages no table references."""
+    perm = torch.randperm(num_pages, generator=torch.Generator().manual_seed(
+        num_pages))
+    table = torch.full((len(cur), pps), -1, dtype=torch.int32)
+    used = 0
+    for b, c in enumerate(cur):
+        n = pps - 2 if c >= pps * ps else c // ps + 1
+        table[b, :n] = perm[used:used + n]
+        used += n
+    unref = torch.ones(num_pages, dtype=torch.bool)
+    unref[table[table >= 0].long()] = False
+    return table.to(device), unref.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_and_mla_kernels_match_plain(cuda_device, dtype):
+    """Every pool page no table references is NaN, so a kernel that read
+    one would show it; ragged positions, one lane at 2**30, a shuffled
+    page order and trailing -1 entries."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    tops.reset_launch_counts()
+    cur_l = [0, 21, 2 ** 30, 70]
+    cur = torch.tensor(cur_l, dtype=torch.int32, device=cuda_device)
+    ps, pps, num_pages = 8, 12, 40
+    pages, unref = _paged_case(g, cuda_device, cur_l, ps, pps, num_pages)
+    q = rnd(4, 6, 1, 32)
+    k_pool, v_pool = rnd(num_pages, 2, ps, 32), rnd(num_pages, 2, ps, 32)
+    k_pool[unref] = float("nan")
+    v_pool[unref] = float("nan")
+    for window in (0, 9):
+        got = tops.fused_paged_decode_attention(
+            q, k_pool, v_pool, pages=pages, cur_pos=cur, window=window)
+        assert bool(torch.isfinite(got.float()).all())
+        _close(got, tops.gqa_paged_decode_attn_plain(
+            q, k_pool, v_pool, pages, cur, window), dtype)
+    qa, qr = rnd(4, 5, 64), rnd(4, 5, 16)
+    lat, rope = rnd(4, 96, 64), rnd(4, 96, 16)
+    _close(tops.fused_mla_decode_attention(qa, qr, lat, rope, cur_pos=cur,
+                                           head_dim_for_scale=24),
+           tops.mla_decode_attn_plain(qa, qr, lat, rope, cur, 24), dtype)
+    lat_p, rope_p = rnd(num_pages, ps, 64), rnd(num_pages, ps, 16)
+    lat_p[unref] = float("nan")
+    rope_p[unref] = float("nan")
+    got = tops.fused_paged_mla_decode_attention(
+        qa, qr, lat_p, rope_p, pages=pages, cur_pos=cur,
+        head_dim_for_scale=24)
+    assert got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    _close(got, tops.mla_paged_decode_attn_plain(qa, qr, lat_p, rope_p,
+                                                 pages, cur, 24), dtype)
+    torch.cuda.synchronize()
+    counts = tops.launch_counts()
+    assert (counts["fused_paged_decode_attention"],
+            counts["fused_mla_decode_attention"],
+            counts["fused_paged_mla_decode_attention"]) == (2, 1, 1)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_options_raise_instead_of_falling_back(cuda_device):
+    """A page size that is not a multiple of 8 with the fused switch
+    raises — at the engine and at the wrappers — and so do a pool whose
+    rows are wider than q's and float16 operands; no kernel launches."""
+    from repro_torch.control import ControlConfig
+    from repro_torch.launch.serve import ServeEngine
+
+    tops.reset_launch_counts()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ServeEngine("yi-6b", num_slots=2, max_len=16, page_size=4,
+                    control=ControlConfig(fused_attention=True),
+                    device="cuda")
+    q = torch.ones((2, 4, 1, 8), device=cuda_device)
+    pool = torch.ones((4, 2, 4, 8), device=cuda_device)
+    pages = torch.zeros((2, 2), dtype=torch.int32, device=cuda_device)
+    cur = torch.zeros((2,), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tops.fused_paged_decode_attention(q, pool, pool, pages=pages,
+                                          cur_pos=cur)
+    wide = torch.ones((4, 2, 8, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        tops.fused_paged_decode_attention(q, wide, wide, pages=pages,
+                                          cur_pos=cur)
+    lat = torch.ones((4, 4, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tops.fused_paged_mla_decode_attention(
+            torch.ones((2, 3, 16), device=cuda_device),
+            torch.ones((2, 3, 4), device=cuda_device), lat, lat[..., :4],
+            pages=pages, cur_pos=cur, head_dim_for_scale=12)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tops.fused_mla_decode_attention(
+            torch.ones((2, 3, 16), dtype=torch.float16, device=cuda_device),
+            torch.ones((2, 3, 4), dtype=torch.float16, device=cuda_device),
+            torch.ones((2, 8, 16), dtype=torch.float16, device=cuda_device),
+            torch.ones((2, 8, 4), dtype=torch.float16, device=cuda_device),
+            cur_pos=cur, head_dim_for_scale=12)
+    assert set(tops.launch_counts().values()) == {0}

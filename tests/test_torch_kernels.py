@@ -198,9 +198,27 @@ def test_cpu_tensors_never_move_a_launch_counter():
     kv = torch.from_numpy(_arr(rng, (2, 2, 16, 8)))
     tops.fused_decode_attention(q, kv, kv,
                                 cur_pos=torch.tensor([3, 2 ** 30]))
+    pool = torch.from_numpy(_arr(rng, (5, 2, 8, 8)))
+    pages = torch.tensor([[0, 3], [4, -1]], dtype=torch.int32)
+    cur = torch.tensor([9, 2 ** 30])
+    tops.fused_paged_decode_attention(q, pool, pool, pages=pages,
+                                      cur_pos=cur)
+    qa, qr = (torch.from_numpy(_arr(rng, (2, 3, 16))),
+              torch.from_numpy(_arr(rng, (2, 3, 4))))
+    tops.fused_mla_decode_attention(
+        qa, qr, torch.from_numpy(_arr(rng, (2, 16, 16))),
+        torch.from_numpy(_arr(rng, (2, 16, 4))), cur_pos=cur,
+        head_dim_for_scale=12)
+    tops.fused_paged_mla_decode_attention(
+        qa, qr, torch.from_numpy(_arr(rng, (5, 8, 16))),
+        torch.from_numpy(_arr(rng, (5, 8, 4))), pages=pages, cur_pos=cur,
+        head_dim_for_scale=12)
     counts = tops.launch_counts()
     assert set(counts) == {"block_pruned_matmul", "fused_pruned_ffn",
                            "fused_decode_attention", "pruned_matmul_dx",
                            "pruned_matmul_dw", "outpruned_matmul",
-                           "outpruned_matmul_dx", "outpruned_matmul_dw"}
+                           "outpruned_matmul_dx", "outpruned_matmul_dw",
+                           "fused_paged_decode_attention",
+                           "fused_mla_decode_attention",
+                           "fused_paged_mla_decode_attention"}
     assert set(counts.values()) == {0}

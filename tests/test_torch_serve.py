@@ -112,14 +112,75 @@ def test_engine_api_on_cpu():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(page_size=8), dict(kv_int8=True), dict(tp=2),
-    dict(ckpt_dir="ckpt"), dict(control=ControlConfig(mode="semi")),
+    dict(tp=2), dict(ckpt_dir="ckpt"),
+    dict(control=ControlConfig(mode="semi")),
     dict(control=ControlConfig(mode="mig")),
     dict(control=ControlConfig(geometry=(2, 1))),
 ])
 def test_unsupported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="slice"):
         ServeEngine("yi-6b", num_slots=2, max_len=8, device="cpu", **kwargs)
+
+
+def _outcome(make, act):
+    """("ok", act(engine)) or (exception type name, message)."""
+    try:
+        eng = make()
+        try:
+            return "ok", act(eng)
+        finally:
+            eng.close()
+    except (ValueError, RuntimeError, NotImplementedError) as e:
+        return type(e).__name__, str(e)
+
+
+def _never_fits_the_pool(eng):
+    # fits max_len 16, but needs 4 pages of a 2-page pool: refused, and
+    # nothing is queued
+    ok = eng.try_submit(Request(uid=0, prompt=np.ones(6, np.int32),
+                                max_new_tokens=8))
+    return ok, len(eng.queue)
+
+
+def _past_max_len(eng):
+    eng.submit(Request(uid=0, prompt=np.ones(12, np.int32),
+                       max_new_tokens=8))
+
+
+@pytest.mark.parametrize("case", [
+    "kv_int8_without_pages", "kv_int8_with_fused_kernel",
+    "fused_page_size_not_multiple_of_8", "pool_over_capacity",
+    "past_max_len_on_paged_engine"])
+def test_paged_options_follow_the_reference(case):
+    """The paging options raise (or refuse) as the reference's engine
+    does, given the same arguments."""
+    fused = dict(fused_attention=True)
+    kw, act = {
+        "kv_int8_without_pages": (dict(kv_int8=True), None),
+        "kv_int8_with_fused_kernel": (
+            dict(page_size=8, kv_int8=True, control=fused), None),
+        "fused_page_size_not_multiple_of_8": (
+            dict(page_size=4, control=fused), None),
+        "pool_over_capacity": (dict(page_size=4, num_pages=2),
+                               _never_fits_the_pool),
+        "past_max_len_on_paged_engine": (dict(page_size=4), _past_max_len),
+    }[case]
+    ctl = kw.pop("control", None)
+
+    def make(engine_cls, control_cls, **extra):
+        return lambda: engine_cls(
+            "yi-6b", num_slots=2, max_len=16, seed=0,
+            control=None if ctl is None else control_cls(**ctl), **kw,
+            **extra)
+
+    act = act or (lambda eng: None)
+    ref = _outcome(make(JServeEngine, JControlConfig), act)
+    got = _outcome(make(ServeEngine, ControlConfig, device="cpu"), act)
+    assert got == ref
+    if case == "pool_over_capacity":
+        assert ref == ("ok", (False, 0))
+    else:
+        assert ref[0] == "ValueError"
 
 
 def test_cuda_request_without_a_gpu_raises():
@@ -143,6 +204,7 @@ def test_port_imports_neither_jax_nor_repro():
             "import repro_torch.launch.serve, repro_torch.bridge\n"
             "import repro_torch.launch.train, repro_torch.models.vit\n"
             "import repro_torch.parallel, repro_torch.kernels.ops\n"
+            "import repro_torch.layers.moe\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
             "or m.startswith('repro.'))\n"
