@@ -19,7 +19,20 @@ Phases, each printing one line of its own; any failure exits non-zero:
               one invalid lane, a shuffled page order, trailing -1
               entries); each timed with CUDA events beside its plain
               version, a one-call PyTorch yardstick where one exists, and
-              its bound at 3.35 TB/s and 989 (bf16) / 67 (f32) TFLOP/s.
+              its bound at 3.35 TB/s and 989 (bf16) / 67 (f32) TFLOP/s;
+              the unfused decode attention (#7, the baseline of the fused
+              one) at #1's shapes and positions, with a second bound for
+              its own traffic (every K/V row and the f32 score matrix),
+              and at the shapes and positions of the analysis phase's
+              micro_kernel probe, where its launches come from.
+   analysis — the port's static invariant gate on the card:
+              ``python -m repro_torch.analysis --check --mutate`` must
+              return 0 (the train, serve-decode and serve-engine steps
+              at smoke width, the collective probes and every kernel
+              wrapper linted against R1-R5; every mutant fires); one line
+              per kernel function: registers, static and dynamic shared
+              memory at the cases' shapes, spills. Its counts are the
+              launches of #7.
 3. reference — decode steps of two-layer, full-width models in float32
               under a resizing plan, the kernel path against the plain
               path on the same inputs: Yi-6B over the slot cache and over
@@ -64,7 +77,8 @@ Phases, each printing one line of its own; any failure exits non-zero:
 
 Then one JSON line of per-kernel numbers (launches of each kernel from
 the run of its path: #1-#3 phase 4, #4 paged-serve, #5 / #6 the two
-mla-serve runs, the backward family phase 8) and, last, the JSON line
+mla-serve runs, #7 the analysis phase, the backward family phase 8) and,
+last, the JSON line
 ``{"ok": true, "device": {...}}``. The engines' latencies are MODELED (a
 host-CPU calibration) and are not printed as card times; the serve and
 train phases print host wall-clock numbers only.
@@ -93,6 +107,7 @@ REPLACES = {
     "fused_paged_decode_attention": "src/repro/kernels/decode_attn.py:444",
     "fused_mla_decode_attention": "src/repro/kernels/decode_attn.py:227",
     "fused_paged_mla_decode_attention": "src/repro/kernels/decode_attn.py:546",
+    "unfused_decode_attention": "src/repro/kernels/decode_attn.py:317",
 }
 _GRAD_CU = "src/repro_torch/kernels/csrc/pruned_grad.cu"
 SOURCES = {
@@ -110,6 +125,8 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/mla_decode_attn.cu",
     "fused_paged_mla_decode_attention":
         "src/repro_torch/kernels/csrc/mla_decode_attn.cu",
+    "unfused_decode_attention":
+        "src/repro_torch/kernels/csrc/unfused_gqa_decode_attn.cu",
 }
 
 
@@ -202,18 +219,55 @@ def main():
                 rows.append((e.key, e.count, us / 1e3))
         return sorted(rows, key=lambda r: -r[2])
 
+    def profiled_kernels(fn, n_sets, iters=10):
+        """[(kernel name, calls, device ms)] of ``iters`` calls under the
+        profiler, and the number of calls. On this card the profiler has
+        dropped kernel records: device-only windows late in this script
+        (phase 6) have held none, or only some, of the kernels their calls
+        launched. So the window records CPU activity too, and is checked
+        by name against the launches the port's wrappers report in it:
+        for each of their ``__global__`` functions, at least as many
+        records whose name holds it as launches of it. Records of other
+        kernels (casts, memsets) count for nothing. A window that falls
+        short is taken again, longer (up to three times)."""
+        for attempt, n in enumerate((iters, 4 * iters, 10 * iters)):
+            fn(0)
+            torch.cuda.synchronize()
+            want = {}
+
+            def hook(name, launches):
+                for ls in launches:
+                    base = ls.fn.split("<")[0]
+                    want[base] = want.get(base, 0) + 1
+            prev = ops.set_launch_hook(hook)
+            try:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for i in range(n):
+                        fn(i % n_sets)
+                    torch.cuda.synchronize()
+            finally:
+                ops.set_launch_hook(prev)
+            rows = kernel_times(prof)
+            short = {base: (sum(c for k, c, _ in rows if base in k), w)
+                     for base, w in want.items()}
+            short = {b: gw for b, gw in short.items() if gw[0] < gw[1]}
+            if rows and want and not short:
+                return rows, n
+            say("profiler", f"attempt {attempt + 1}: window of {n} calls; "
+                "records / launches of the port's kernels short: " + (
+                    ", ".join(f"{b} {g}/{w}" for b, (g, w) in short.items())
+                    or f"{len(want)} kernels launched, {len(rows)} records"
+                ) + "; taken again")
+        return [], iters
+
     def device_ms(fn, n_sets, iters=10):
         """Device time per call (sum of its kernels, from the profiler):
         what the card spends, without the host's launch gaps. None when
         the profiler records no device activity."""
-        fn(0)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in range(iters):
-                fn(i % n_sets)
-            torch.cuda.synchronize()
-        total = sum(r[2] for r in kernel_times(prof))
-        return total / iters if total > 0 else None
+        rows, n = profiled_kernels(fn, n_sets, iters)
+        total = sum(r[2] for r in rows)
+        return total / n if total > 0 else None
 
     def errs(got, ref):
         g, r = got.float(), ref.float()
@@ -398,6 +452,84 @@ def main():
                    f"{cur_np.tolist()}", dtype, got, ref, timings, nbytes,
                    flops, dtype == torch.bfloat16 and window == 0)
         del qs, ks, vs
+
+    # -- unfused GQA decode attention (#7), the baseline of #1, at #1's
+    # shapes and positions, into NaN-filled outputs: three launches with
+    # the f32 score matrix [8, 4, 8, 1024] in device memory and every
+    # cache row read whatever cur_pos is. Two bounds: the function's (the
+    # attended rows, as #1's) and the kernel's own traffic (all K/V rows,
+    # the score matrix written, read, written and read again)
+    G = Hq // Hkv
+    mask = (torch.arange(S, device=dev)[None, :]
+            <= cur.long()[:, None])[:, None, None, :]
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.finfo(dtype).bits // 8
+        n_sets = copies_for(2 * B * Hkv * S * D * es)
+        qs = [rnd((B, Hq, 1, D), dtype) for _ in range(n_sets)]
+        ks = [rnd((B, Hkv, S, D), dtype) for _ in range(n_sets)]
+        vs = [rnd((B, Hkv, S, D), dtype) for _ in range(n_sets)]
+        out = torch.full((B, Hq, 1, D), float("nan"), dtype=dtype,
+                         device=dev)
+        got = ops.unfused_decode_attention(qs[0], ks[0], vs[0], cur_pos=cur,
+                                           out=out)
+        if got.data_ptr() != out.data_ptr():
+            raise SystemExit("unfused_decode_attention did not write into "
+                             "`out`")
+        ref = ops.unfused_gqa_decode_attn_plain(qs[0], ks[0], vs[0], cur)
+        kx = [k.repeat_interleave(G, 1) for k in ks]
+        vx = [v.repeat_interleave(G, 1) for v in vs]
+        timings = {
+            "ms": time_ms(lambda i: ops.unfused_decode_attention(
+                qs[i], ks[i], vs[i], cur_pos=cur), n_sets),
+            "device_ms": device_ms(lambda i: ops.unfused_decode_attention(
+                qs[i], ks[i], vs[i], cur_pos=cur), n_sets),
+            "plain_ms": time_ms(lambda i: ops.unfused_gqa_decode_attn_plain(
+                qs[i], ks[i], vs[i], cur), n_sets),
+            "library_ms": time_ms(lambda i: F.scaled_dot_product_attention(
+                qs[i], kx[i], vx[i], attn_mask=mask), n_sets)}
+        if dtype == torch.bfloat16:
+            krows, n = profiled_kernels(lambda i: ops.unfused_decode_attention(
+                qs[i], ks[i], vs[i], cur_pos=cur), n_sets)
+            say("kernels", "unfused_decode_attention bf16, device ms per "
+                "call by launch: " + "; ".join(
+                    f"{next((w for w in ('scores', 'softmax', 'wsum') if w in k), k[:40])} "
+                    f"{ms / n:.4f}" for k, _, ms in krows))
+        rows = int(mask.sum())
+        traffic = (2 * B * Hkv * S * D * es + 2 * B * Hq * D * es + B * 4
+                   + 4 * B * Hkv * G * S * 4)
+        record("unfused_decode_attention",
+               f"q[8,32,1,128] kv[8,4,1024,128] cur_pos {cur_np.tolist()}; "
+               f"the kernel's own traffic {traffic / 1e6:.1f} MB -> "
+               f"{traffic / HBM_BYTES_PER_S * 1e3:.4f} ms", dtype, got, ref,
+               timings, (rows * Hkv * 2 * D + 2 * B * Hq * D) * es + B * 4,
+               rows * Hq * 2 * 2 * D, dtype == torch.bfloat16)
+        del qs, ks, vs, kx, vx
+
+    # ... and at the shapes and positions the analysis phase's micro_kernel
+    # probe gives it (one table, repro_torch.analysis.micro), where its
+    # launch count comes from: Hkv 8, G 4, S 256, an invalid lane
+    from repro_torch.analysis.micro import PROBE_CUR_POS, PROBE_KV, PROBE_Q
+    pcur = torch.tensor(PROBE_CUR_POS, dtype=torch.int32, device=dev)
+    pB, pHkv, pS, pD = PROBE_KV
+    pmask = (torch.arange(pS, device=dev)[None, :]
+             <= pcur.long()[:, None])[:, None, None, :]
+    prows = int(pmask.sum())
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.finfo(dtype).bits // 8
+        q, k, v = rnd(PROBE_Q, dtype), rnd(PROBE_KV, dtype), rnd(PROBE_KV,
+                                                                  dtype)
+        out = torch.full(PROBE_Q, float("nan"), dtype=dtype, device=dev)
+        got = ops.unfused_decode_attention(q, k, v, cur_pos=pcur, out=out)
+        if got.data_ptr() != out.data_ptr():
+            raise SystemExit("unfused_decode_attention did not write into "
+                             "`out`")
+        ref = ops.unfused_gqa_decode_attn_plain(q, k, v, pcur)
+        record("unfused_decode_attention",
+               f"micro_kernel probe q{list(PROBE_Q)} kv{list(PROBE_KV)} "
+               f"cur_pos {list(PROBE_CUR_POS)}", dtype, got, ref, {},
+               (prows * pHkv * 2 * pD + 2 * pB * PROBE_Q[1] * pD) * es
+               + pB * 4, prows * PROBE_Q[1] * 2 * 2 * pD, False)
+        del q, k, v
 
     # -- paged GQA (#4) and absorbed-MLA decode attention over the slot
     # cache (#5) and the paged pool (#6), at the shapes full-width Yi-6B
@@ -588,6 +720,49 @@ def main():
         raise SystemExit(f"kernel checks failed: {failures}")
     say("kernels", f"all {len(checked)} kernel checks within "
         "tolerance")
+
+    # ------------------------------------------------------------ analysis
+    # the port's static invariant gate on the card: the full signature
+    # matrix (train, serve-decode and serve-engine steps at smoke width,
+    # the collective probes, every kernel wrapper at its probe shapes) run
+    # once under the recorder and linted against R1-R5, then every mutant.
+    # R4 prices each launch from the C launcher's own launch config and
+    # ptxas's log; its micro_kernel run is the path of #7
+    from repro_torch.analysis import smem as an_smem
+    from repro_torch.analysis.__main__ import main as analysis_main
+    seen = {}
+
+    def collect(name, launches_):
+        for ln in launches_:
+            d = seen.setdefault(ln.fn, {"smem": 0, "threads": set(),
+                                        "by": set()})
+            d["smem"] = max(d["smem"], ln.smem)
+            d["threads"].add(ln.threads)
+            d["by"].add(name)
+    prev_hook = ops.set_launch_hook(collect)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = analysis_main(["--check", "--mutate"])
+    finally:
+        ops.set_launch_hook(prev_hook)
+    an_launches = ops.launch_counts()
+    budget = an_smem.device_budget()
+    say("analysis", f"--check --mutate returned {rc} in "
+        f"{time.perf_counter() - t0:.1f} s; budget: {budget.smem_per_block} "
+        f"B shared memory per block, {budget.regs_per_sm} registers per SM; "
+        f"launches {an_launches}")
+    for fn, r in sorted(an_smem.kernel_resources().items()):
+        d = seen.get(fn)
+        say("analysis", f"{fn}: {r.registers} registers/thread, static smem "
+            f"{r.static_smem} B, dynamic smem "
+            f"{'-' if d is None else d['smem']} B (largest at the cases' "
+            f"shapes), threads {'-' if d is None else sorted(d['threads'])}"
+            f", spills {r.spill_stores}/{r.spill_loads} B; launched by "
+            f"{'-' if d is None else sorted(d['by'])}")
+    idle = [k for k, n in an_launches.items() if n <= 0]
+    if rc != 0 or idle:
+        raise SystemExit(f"analysis failed: rc {rc}, never launched {idle}")
 
     # ---------------------------------------------------------------- 3
     # full width, two layers, f32: the kernel path against the plain path
@@ -1397,16 +1572,19 @@ def main():
     kernels = []
     # launches of each kernel from the run of its path: #1-#3 the Yi-6B
     # slot-cache serve (phase 4), #4 the paged Yi-6B serve, #5 / #6 the
-    # DeepSeek slot-cache / paged serves, #8-#12 the train run (phase 8)
+    # DeepSeek slot-cache / paged serves, #7 the analysis phase (its
+    # micro_kernel cases), #8-#12 the train run (phase 8)
     launch_source = {"fused_paged_decode_attention": paged_launches,
                      "fused_mla_decode_attention": mla_launches,
-                     "fused_paged_mla_decode_attention": mla_paged_launches}
+                     "fused_paged_mla_decode_attention": mla_paged_launches,
+                     "unfused_decode_attention": an_launches}
     for name in ("fused_decode_attention", "block_pruned_matmul",
                  "fused_pruned_ffn", "fused_paged_decode_attention",
                  "fused_mla_decode_attention",
                  "fused_paged_mla_decode_attention", "pruned_matmul_dx",
                  "pruned_matmul_dw", "outpruned_matmul",
-                 "outpruned_matmul_dx", "outpruned_matmul_dw"):
+                 "outpruned_matmul_dx", "outpruned_matmul_dw",
+                 "unfused_decode_attention"):
         k = per_kernel[name]
         n_launch = launch_source.get(
             name, launches if name in serve_kernels else train_launches)[name]

@@ -145,6 +145,7 @@ class ControlPlane:
             if static is not None else {})
 
         # -- build cache ---------------------------------------------------
+        self.builder = builder          # the analyzer builds past the cache
         self.cache = PlanCompileCache(builder)
         self.base = self.cache.get(static)
 

@@ -22,9 +22,9 @@ index here is traced. In the port the plan's ``mig_src`` is host-side:
 the renumbering and each slot's offsets are Python integers, so a layer
 picks its slices without a device sync. The helpers' products are plain
 ``torch.matmul``, as the reference's are ``jnp`` products outside
-Pallas. The broadcast is the group's masked psum
-(:meth:`repro_torch.parallel.TPGroup.bcast_from`); gradients of the
-broadcast slices flow back to each source's own shard through it, so
+Pallas. The broadcast is the group's one grouped masked psum over every
+slot (:meth:`repro_torch.parallel.TPGroup.bcast_grouped`); gradients of
+the broadcast slices flow back to each source's own shard through it, so
 migration stays lossless forward and backward.
 
 The reference's ``migrated_pair_matmul`` / ``scatter_gather_pair_matmul``
@@ -86,19 +86,12 @@ def fused_migration_broadcast(group: TPGroup, srcs: Sequence[int],
     slots are concatenated. Returns ``(b_in, b_out, b_gate | None)``,
     which every rank holds after the collective.
     """
-    e = group.e
-    H = max(e - len(sheds), 1)
+    H = max(group.e - len(sheds), 1)
     c_in, c_out, c_gate = [], [], []
-    for s, m_s in enumerate(sheds):
+    slots = group.bcast_grouped([int(srcs[s]) for s in range(len(sheds))],
+                                exports)
+    for (exp_in, exp_out, exp_gate), m_s in zip(slots, sheds):
         pad = (-(-int(m_s) // H)) * H - int(m_s)
-        src = int(srcs[s])
-        if src >= 0:
-            exp_in, exp_out, exp_gate = group.bcast_from(
-                src, lambda r, s=s: exports(r, s))
-        else:   # an idle slot: every rank contributes zeros
-            exp_in, exp_out, exp_gate = (
-                None if t is None else torch.zeros_like(t)
-                for t in exports(0, s))
         if pad:
             exp_in = torch.nn.functional.pad(exp_in, (0, pad * block))
             exp_out = torch.nn.functional.pad(exp_out, (0, 0, 0, pad * block))

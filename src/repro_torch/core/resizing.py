@@ -62,7 +62,8 @@ def keep_mask(keep_idx: torch.Tensor, num_blocks: int,
               block: int) -> torch.Tensor:
     """Boolean [num_blocks*block] mask, True where the dimension was kept."""
     m = torch.zeros((num_blocks,), dtype=torch.bool, device=keep_idx.device)
-    m[keep_idx.long()] = True
+    # index_fill_ takes the value as a scalar: no host tensor to upload
+    m.index_fill_(0, keep_idx.long(), True)
     return m.repeat_interleave(block)
 
 

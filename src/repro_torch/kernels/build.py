@@ -26,7 +26,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("gqa_decode_attn.cu", "block_pruned_matmul.cu",
            "fused_pruned_ffn.cu", "pruned_grad.cu",
-           "gqa_paged_decode_attn.cu", "mla_decode_attn.cu")
+           "gqa_paged_decode_attn.cu", "mla_decode_attn.cu",
+           "unfused_gqa_decode_attn.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "librepro_torch_kernels.so"
@@ -60,7 +61,45 @@ SIGNATURES = {
                                   _P),
     "repro_outpruned_matmul_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _P),
+    "repro_unfused_gqa_decode_attn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _I, _F, _I, _I, _P),
 }
+# each launcher family's repro_<family>_launch_config: its integer
+# arguments, then a LaunchRec array it fills; returns the launch count
+CONFIG_SIGNATURES = {
+    "repro_gqa_decode_attn": 7,           # B, Hkv, G, D, Dv, splits, dtype
+    "repro_gqa_paged_decode_attn": 7,     # B, Hkv, G, D, Dv, splits, dtype
+    "repro_mla_decode_attn": 7,           # B, H, R, Dr, splits, paged, dtype
+    "repro_block_pruned_matmul": 6,       # M, N, kb, block, splits, dtype
+    "repro_pruned_ffn_hidden": 6,         # M, K, kb, block, splits, dtype
+    "repro_pruned_matmul_dx": 7,          # M, N, nb, kb, block, compact, dtype
+    "repro_pruned_matmul_dw": 7,          # M, N, nb, kb, block, compact, dtype
+    "repro_outpruned_matmul": 6,          # M, K, H, kb, block, dtype
+    "repro_outpruned_matmul_dx": 6,       # M, K, H, kb, block, dtype
+    "repro_outpruned_matmul_dw": 6,       # M, K, nb, kb, block, dtype
+    "repro_unfused_gqa_decode_attn": 7,   # B, Hkv, G, S, D, Dv, dtype
+}
+MAX_LAUNCHES = 4                          # kMaxLaunches in common.cuh
+
+
+class LaunchRec(ctypes.Structure):
+    """``LaunchRec`` of common.cuh: one kernel launch as its launcher
+    makes it."""
+
+    _fields_ = [("fn", ctypes.c_char * 96), ("grid", ctypes.c_int * 3),
+                ("threads", ctypes.c_int), ("smem", ctypes.c_int)]
+
+
+@dataclasses.dataclass(frozen=True)
+class Launch:
+    """One kernel launch: the ``__global__`` function as
+    ``name<template arguments>``, grid, threads per block and dynamic
+    shared memory in bytes."""
+
+    fn: str
+    grid: tuple
+    threads: int
+    smem: int
 
 
 @dataclasses.dataclass
@@ -157,6 +196,10 @@ def library() -> KernelLibrary:
         fn = getattr(lib, name)
         fn.argtypes = list(args)
         fn.restype = ctypes.c_int
+    for name, n_ints in CONFIG_SIGNATURES.items():
+        fn = getattr(lib, name + "_launch_config")
+        fn.argtypes = [_I] * n_ints + [ctypes.POINTER(LaunchRec)]
+        fn.restype = ctypes.c_int
     return KernelLibrary(lib=lib, path=lib_path, built=built,
                          seconds=time.perf_counter() - t0, log=log)
 
@@ -165,3 +208,20 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: launch failed with cudaError_t {err}")
+
+
+def launch_config(entry: str, *ints: int) -> tuple:
+    """The launches ``entry`` makes for these integer arguments (its
+    ``*_launch_config`` export, the function the launcher itself launches
+    from), without launching anything."""
+    if len(ints) != CONFIG_SIGNATURES[entry]:
+        raise ValueError(f"{entry}_launch_config takes "
+                         f"{CONFIG_SIGNATURES[entry]} integers, got "
+                         f"{len(ints)}")
+    recs = (LaunchRec * MAX_LAUNCHES)()
+    n = getattr(library().lib, entry + "_launch_config")(
+        *[int(v) for v in ints], recs)
+    if not 0 < n <= MAX_LAUNCHES:
+        raise ValueError(f"{entry}_launch_config refused {ints}")
+    return tuple(Launch(r.fn.decode(), tuple(r.grid), r.threads, r.smem)
+                 for r in recs[:n])

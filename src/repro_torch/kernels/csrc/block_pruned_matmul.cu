@@ -77,24 +77,39 @@ bpm_partial_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// The two launches of one call; returns their count.
+int config(int M, int N, int kb, int block, int splits, int dtype,
+           LaunchRec* r, bool names) {
+  const int bps = (kb + splits - 1) / splits;
+  const int used = (kb + bps - 1) / bps;  // ranges that hold a kept block
+  set_launch(&r[0], names,
+             dim3((N + kThreads - 1) / kThreads, (M + kTM - 1) / kTM,
+                         used),
+             kThreads, (size_t)kTM * block * sizeof(float),
+             "bpm_partial_kernel<%s>", dt_name(dtype));
+  const long mn = (long)M * N;
+  set_launch(&r[1], names, dim3((unsigned)((mn + 255) / 256)), 256, 0,
+             "reduce_splits_kernel<%s>", dt_name(dtype));
+  return 2;
+}
+
 template <typename T>
 cudaError_t launch(const void* x, const void* w, const int* keep,
                    float* partial, void* y, int M, int K, int N, int kb,
                    int block, int x_compact, int splits, cudaStream_t st) {
+  LaunchRec r[kMaxLaunches];
+  config(M, N, kb, block, splits, dtype_of<T>(), r, false);
   const int bps = (kb + splits - 1) / splits;
-  const int used = (kb + bps - 1) / bps;  // ranges that hold a kept block
-  const size_t smem = (size_t)kTM * block * sizeof(float);
-  cudaError_t e = allow_smem(bpm_partial_kernel<T>, smem);
+  const int used = r[0].grid[2];
+  cudaError_t e = allow_smem(bpm_partial_kernel<T>, r[0].smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((N + kThreads - 1) / kThreads, (M + kTM - 1) / kTM, used);
-  bpm_partial_kernel<T><<<grid, kThreads, smem, st>>>(
+  bpm_partial_kernel<T><<<grid_of(r[0]), r[0].threads, r[0].smem, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), keep, partial,
       M, K, N, kb, block, x_compact, bps);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const long mn = (long)M * N;
-  reduce_splits_kernel<T><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
-      partial, static_cast<T*>(y), mn, used);
+  reduce_splits_kernel<T><<<grid_of(r[1]), r[1].threads, 0, st>>>(
+      partial, static_cast<T*>(y), (long)M * N, used);
   return cudaGetLastError();
 }
 
@@ -116,4 +131,11 @@ extern "C" int repro_block_pruned_matmul(
     return (int)launch<__nv_bfloat16>(x, w, keep, partial, y, M, K, N, kb,
                                       block, x_compact, splits, st);
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int repro_block_pruned_matmul_launch_config(int M, int N, int kb,
+                                                       int block, int splits,
+                                                       int dtype,
+                                                       LaunchRec* r) {
+  return config(M, N, kb, block, splits, dtype, r, true);
 }

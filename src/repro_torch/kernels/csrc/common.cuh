@@ -4,14 +4,63 @@
 // float32 on load and accumulates in float32. The C entry points take a
 // dtype code (DT_F32 / DT_BF16), launch on the caller's stream and
 // return cudaGetLastError(), which the Python wrapper checks.
+//
+// Each launcher family computes its launches (function, grid, threads,
+// dynamic shared memory) in one config function that it launches from
+// and also exports as repro_*_launch_config, so the analyzer
+// (repro_torch.analysis, rule R4) prices exactly the launches that run.
+// Only the export asks config for the functions' names (names = true):
+// a launch formats no string.
 #pragma once
 
 #include <math.h>
+#include <stdarg.h>
+#include <stdio.h>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 enum { DT_F32 = 0, DT_BF16 = 1 };
+
+template <typename T> constexpr int dtype_of();
+template <> constexpr int dtype_of<float>() { return DT_F32; }
+template <> constexpr int dtype_of<__nv_bfloat16>() { return DT_BF16; }
+
+static inline const char* dt_name(int dtype) {
+  return dtype == DT_BF16 ? "__nv_bfloat16" : "float";
+}
+
+// One kernel launch: the __global__ function as name<template arguments>
+// (how the analyzer names the entries of ptxas's -v log), the grid, the
+// threads per block and the dynamic shared memory in bytes.
+struct LaunchRec {
+  char fn[96];
+  int grid[3];
+  int threads;
+  int smem;
+};
+constexpr int kMaxLaunches = 4;
+
+static inline void set_launch(LaunchRec* r, bool names, dim3 grid,
+                              int threads, size_t smem, const char* fmt,
+                              ...) {
+  r->fn[0] = '\0';
+  if (names) {
+    va_list ap;
+    va_start(ap, fmt);
+    vsnprintf(r->fn, sizeof(r->fn), fmt, ap);
+    va_end(ap);
+  }
+  r->grid[0] = (int)grid.x;
+  r->grid[1] = (int)grid.y;
+  r->grid[2] = (int)grid.z;
+  r->threads = threads;
+  r->smem = (int)smem;
+}
+
+static inline dim3 grid_of(const LaunchRec& r) {
+  return dim3((unsigned)r.grid[0], (unsigned)r.grid[1], (unsigned)r.grid[2]);
+}
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }

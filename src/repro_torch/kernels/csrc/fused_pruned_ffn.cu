@@ -121,25 +121,45 @@ __global__ void ffn_hidden_act_kernel(const float* __restrict__ part_up,
   h[i] = from_f<T>(v);
 }
 
+// whole kChunk ranges per split, so only the last range is ragged
+int k_per_split(int K, int splits) {
+  const int kps = (K + splits - 1) / splits;
+  return (kps + kChunk - 1) / kChunk * kChunk;
+}
+
+// The two launches of one call; returns their count.
+int config(int M, int K, int kb, int block, int splits, int dtype,
+           LaunchRec* r, bool names) {
+  const int kps = k_per_split(K, splits);
+  const int used = (K + kps - 1) / kps;
+  const int C = kb * block;
+  set_launch(&r[0], names,
+             dim3((C + kThreads - 1) / kThreads, (M + kTM - 1) / kTM,
+                         used),
+             kThreads, 0, "ffn_hidden_partial_kernel<%s>", dt_name(dtype));
+  const long n = (long)M * C;
+  set_launch(&r[1], names, dim3((unsigned)((n + 255) / 256)), 256, 0,
+             "ffn_hidden_act_kernel<%s>", dt_name(dtype));
+  return 2;
+}
+
 template <typename T>
 cudaError_t launch(const void* x, const void* w_up, const void* w_gate,
                    const int* keep, float* part_up, float* part_gate,
                    void* h, int M, int K, int H, int kb, int block,
                    int splits, int act, cudaStream_t st) {
-  // whole kChunk ranges per split, so only the last range is ragged
-  int kps = (K + splits - 1) / splits;
-  kps = (kps + kChunk - 1) / kChunk * kChunk;
-  const int used = (K + kps - 1) / kps;
-  const int C = kb * block;
-  dim3 grid((C + kThreads - 1) / kThreads, (M + kTM - 1) / kTM, used);
-  ffn_hidden_partial_kernel<T><<<grid, kThreads, 0, st>>>(
+  LaunchRec r[kMaxLaunches];
+  config(M, K, kb, block, splits, dtype_of<T>(), r, false);
+  const int kps = k_per_split(K, splits);
+  const int used = r[0].grid[2];
+  ffn_hidden_partial_kernel<T><<<grid_of(r[0]), r[0].threads, 0, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(w_up),
       static_cast<const T*>(w_gate), keep, part_up,
       w_gate != nullptr ? part_gate : nullptr, M, K, H, kb, block, kps);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const long n = (long)M * C;
-  ffn_hidden_act_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+  const long n = (long)M * kb * block;
+  ffn_hidden_act_kernel<T><<<grid_of(r[1]), r[1].threads, 0, st>>>(
       part_up, w_gate != nullptr ? part_gate : nullptr, static_cast<T*>(h),
       n, used, act);
   return cudaGetLastError();
@@ -166,4 +186,11 @@ extern "C" int repro_pruned_ffn_hidden(
                                       part_gate, h, M, K, H, kb, block,
                                       splits, act, st);
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int repro_pruned_ffn_hidden_launch_config(int M, int K, int kb,
+                                                     int block, int splits,
+                                                     int dtype,
+                                                     LaunchRec* r) {
+  return config(M, K, kb, block, splits, dtype, r, true);
 }

@@ -173,26 +173,39 @@ __global__ void gqa_decode_merge_kernel(const float* __restrict__ part_m,
   out[i] = from_f<T>(A / fmaxf(L, 1e-30f));
 }
 
+// The two launches of one call; returns their count.
+int config(int B, int Hkv, int G, int D, int Dv, int splits, int dtype,
+           LaunchRec* r, bool names) {
+  const size_t floats = (size_t)G * D + (size_t)kTS * (D + 1) +
+                        (size_t)kTS * Dv + (size_t)G * kTS +
+                        (size_t)G * Dv + 3 * (size_t)G;
+  set_launch(&r[0], names,
+             dim3(B * Hkv, splits), kThreads, floats * sizeof(float),
+             "gqa_decode_partial_kernel<%s>", dt_name(dtype));
+  const long n = (long)B * Hkv * G * Dv;
+  set_launch(&r[1], names, dim3((unsigned)((n + 255) / 256)), 256, 0,
+             "gqa_decode_merge_kernel<%s>", dt_name(dtype));
+  return 2;
+}
+
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* cur_pos, float* part_m, float* part_l,
                    float* part_acc, void* out, int B, int Hkv, int G, int S,
                    int D, int Dv, float scale, int window, int splits,
                    cudaStream_t st) {
-  const size_t floats = (size_t)G * D + (size_t)kTS * (D + 1) +
-                        (size_t)kTS * Dv + (size_t)G * kTS +
-                        (size_t)G * Dv + 3 * (size_t)G;
-  const size_t smem = floats * sizeof(float);
-  cudaError_t e = allow_smem(gqa_decode_partial_kernel<T>, smem);
+  LaunchRec r[kMaxLaunches];
+  config(B, Hkv, G, D, Dv, splits, dtype_of<T>(), r, false);
+  cudaError_t e = allow_smem(gqa_decode_partial_kernel<T>, r[0].smem);
   if (e != cudaSuccess) return e;
-  gqa_decode_partial_kernel<T><<<dim3(B * Hkv, splits), kThreads, smem, st>>>(
+  gqa_decode_partial_kernel<T><<<grid_of(r[0]), r[0].threads, r[0].smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), cur_pos, part_m, part_l, part_acc, Hkv, G, S,
       D, Dv, scale, window);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const long n = (long)B * Hkv * G * Dv;
-  gqa_decode_merge_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+  gqa_decode_merge_kernel<T><<<grid_of(r[1]), r[1].threads, 0, st>>>(
       part_m, part_l, part_acc, static_cast<T*>(out), n, G, Dv, splits);
   return cudaGetLastError();
 }
@@ -218,4 +231,10 @@ extern "C" int repro_gqa_decode_attn(
                                       part_acc, out, B, Hkv, G, S, D, Dv,
                                       scale, window, splits, st);
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int repro_gqa_decode_attn_launch_config(int B, int Hkv, int G,
+                                                   int D, int Dv, int splits,
+                                                   int dtype, LaunchRec* r) {
+  return config(B, Hkv, G, D, Dv, splits, dtype, r, true);
 }

@@ -208,26 +208,44 @@ __global__ void mla_merge_kernel(const float* __restrict__ part_m,
   out[i] = A / fmaxf(L, 1e-30f);
 }
 
+// The two launches of one call; returns their count. ``paged`` picks the
+// row policy (PagedRows or SlotRows).
+int config(int B, int H, int R, int Dr, int splits, int paged, int dtype,
+           LaunchRec* r, bool names) {
+  const size_t floats = (size_t)H * (R + Dr + 1) + (size_t)kTS * (R + 1) +
+                        (size_t)kTS * (Dr + 1) + (size_t)H * kTS +
+                        (size_t)H * R + 3 * (size_t)H;
+  set_launch(&r[0], names, dim3(B, splits), kThreads, floats * sizeof(float),
+             "mla_partial_kernel<%s,%s>", dt_name(dtype),
+             paged ? "PagedRows" : "SlotRows");
+  const long n = (long)B * H * R;
+  set_launch(&r[1], names, dim3((unsigned)((n + 255) / 256)), 256, 0,
+             "mla_merge_kernel");
+  return 2;
+}
+
+template <typename Rows> constexpr int is_paged();
+template <> constexpr int is_paged<SlotRows>() { return 0; }
+template <> constexpr int is_paged<PagedRows>() { return 1; }
+
 template <typename T, typename Rows>
 cudaError_t launch(const void* q_abs, const void* q_rope, const void* latent,
                    const void* rope, const int* cur_pos, float* part_m,
                    float* part_l, float* part_acc, float* out, Rows rows,
                    int B, int H, int R, int Dr, int S, float scale,
                    int splits, cudaStream_t st) {
-  const size_t floats = (size_t)H * (R + Dr + 1) + (size_t)kTS * (R + 1) +
-                        (size_t)kTS * (Dr + 1) + (size_t)H * kTS +
-                        (size_t)H * R + 3 * (size_t)H;
-  const size_t smem = floats * sizeof(float);
-  cudaError_t e = allow_smem(mla_partial_kernel<T, Rows>, smem);
+  LaunchRec r[kMaxLaunches];
+  config(B, H, R, Dr, splits, is_paged<Rows>(), dtype_of<T>(), r, false);
+  cudaError_t e = allow_smem(mla_partial_kernel<T, Rows>, r[0].smem);
   if (e != cudaSuccess) return e;
-  mla_partial_kernel<T, Rows><<<dim3(B, splits), kThreads, smem, st>>>(
+  mla_partial_kernel<T, Rows><<<grid_of(r[0]), r[0].threads, r[0].smem, st>>>(
       static_cast<const T*>(q_abs), static_cast<const T*>(q_rope),
       static_cast<const T*>(latent), static_cast<const T*>(rope), cur_pos,
       part_m, part_l, part_acc, rows, H, R, Dr, S, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const long n = (long)B * H * R;
-  mla_merge_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+  mla_merge_kernel<<<grid_of(r[1]), r[1].threads, 0, st>>>(
       part_m, part_l, part_acc, out, n, H, R, splits);
   return cudaGetLastError();
 }
@@ -282,4 +300,11 @@ extern "C" int repro_mla_paged_decode_attn(
   return dispatch(q_abs, q_rope, latent_pool, rope_pool, cur_pos, part_m,
                   part_l, part_acc, out, PagedRows{pages, ps, pps, num_pages},
                   B, H, R, Dr, ps * pps, scale, splits, dtype, stream);
+}
+
+extern "C" int repro_mla_decode_attn_launch_config(int B, int H, int R,
+                                                   int Dr, int splits,
+                                                   int paged, int dtype,
+                                                   LaunchRec* r) {
+  return config(B, H, R, Dr, splits, paged, dtype, r, true);
 }

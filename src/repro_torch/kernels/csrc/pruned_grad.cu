@@ -72,6 +72,7 @@ __device__ __forceinline__ long mapped(const Args& p, int c) {
 
 // #8: A = dy [I=M, T=N]; B(t, j) = w[row(j), t]; out [M, nslots*B].
 struct DxPolicy {
+  static constexpr const char* kName = "DxPolicy";
   static constexpr bool A_CONTIG_T = true;
   static constexpr bool B_CONTIG_T = true;
   __device__ static long a_off(const Args& p, int i, int t) {
@@ -87,6 +88,7 @@ struct DxPolicy {
 
 // #9: A(i, t) = x[t, col(i)]; B = dy [T=M, J=N]; out row(i) of [nb*B, N].
 struct DwPolicy {
+  static constexpr const char* kName = "DwPolicy";
   static constexpr bool A_CONTIG_T = false;
   static constexpr bool B_CONTIG_T = false;
   __device__ static long a_off(const Args& p, int i, int t) {
@@ -102,6 +104,7 @@ struct DwPolicy {
 
 // #10: A = x [M, K]; B(t, j) = w[t, col(j)]; out compact [M, kb*B].
 struct OpPolicy {
+  static constexpr const char* kName = "OpPolicy";
   static constexpr bool A_CONTIG_T = true;
   static constexpr bool B_CONTIG_T = false;
   __device__ static long a_off(const Args& p, int i, int t) {
@@ -117,6 +120,7 @@ struct OpPolicy {
 
 // #11: A = dyc [M, kb*B]; B(t, j) = w[j, col(t)]; out dense [M, K].
 struct OpDxPolicy {
+  static constexpr const char* kName = "OpDxPolicy";
   static constexpr bool A_CONTIG_T = true;
   static constexpr bool B_CONTIG_T = true;
   __device__ static long a_off(const Args& p, int i, int t) {
@@ -132,6 +136,7 @@ struct OpDxPolicy {
 
 // #12: A(i, t) = x[t, i]; B = dyc [T=M, kb*B]; out column col(j) of [K, nb*B].
 struct OpDwPolicy {
+  static constexpr const char* kName = "OpDwPolicy";
   static constexpr bool A_CONTIG_T = false;
   static constexpr bool B_CONTIG_T = false;
   __device__ static long a_off(const Args& p, int i, int t) {
@@ -214,36 +219,88 @@ pruned_gemm_kernel(Args p) {
   }
 }
 
+// The one launch of a call; returns the count, 0 for shapes it refuses.
+int config(const Args& p, const char* policy, int dtype, LaunchRec* r,
+           bool names) {
+  if (p.I <= 0 || p.J <= 0 || p.T <= 0 || p.blk < 1) return 0;
+  set_launch(&r[0], names,
+             dim3((p.J + kTile - 1) / kTile, (p.I + kTile - 1) / kTile),
+             kThreads, 0, "pruned_gemm_kernel<%s,%s>", policy, dt_name(dtype));
+  return 1;
+}
+
 template <typename Policy>
 int launch(const Args& p, int dtype, cudaStream_t st) {
-  if (p.I <= 0 || p.J <= 0 || p.T <= 0 || p.blk < 1)
+  LaunchRec r[kMaxLaunches];
+  if (config(p, Policy::kName, dtype, r, false) != 1 ||
+      r[0].grid[1] > 65535)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((p.J + kTile - 1) / kTile, (p.I + kTile - 1) / kTile);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   if (dtype == DT_F32)
-    pruned_gemm_kernel<Policy, float><<<grid, kThreads, 0, st>>>(p);
+    pruned_gemm_kernel<Policy, float><<<grid_of(r[0]), r[0].threads, 0, st>>>(p);
   else if (dtype == DT_BF16)
-    pruned_gemm_kernel<Policy, __nv_bfloat16><<<grid, kThreads, 0, st>>>(p);
+    pruned_gemm_kernel<Policy, __nv_bfloat16>
+        <<<grid_of(r[0]), r[0].threads, 0, st>>>(p);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// The operands of each of the five products (pointers null for a config).
+Args dx_args(const void* dy, const void* w, const int* order, void* dx,
+             int M, int N, int nb, int kb, int block, int compact_out) {
+  const int nslots = compact_out ? kb : nb;
+  return Args{dy, w, dx, order, M, nslots * block, N, M, kb * block, block,
+              N, N, nslots * block, compact_out};
+}
+
+Args dw_args(const void* x, const void* dy, const int* order, void* dw,
+             int M, int N, int nb, int kb, int block, int x_compact) {
+  const int ldx = (x_compact ? kb : nb) * block;
+  return Args{x, dy, dw, order, nb * block, N, M, kb * block, N, block,
+              ldx, N, N, x_compact};
+}
+
+Args op_args(const void* x, const void* w, const int* keep, void* yc, int M,
+             int K, int H, int kb, int block) {
+  return Args{x, w, yc, keep, M, kb * block, K, M, kb * block, block,
+              K, H, kb * block, 0};
+}
+
+Args opdx_args(const void* dyc, const void* w, const int* keep, void* dx,
+               int M, int K, int H, int kb, int block) {
+  return Args{dyc, w, dx, keep, M, K, kb * block, M, K, block,
+              kb * block, H, K, 0};
+}
+
+Args opdw_args(const void* x, const void* dyc, const int* order, void* dw,
+               int M, int K, int nb, int kb, int block) {
+  return Args{x, dyc, dw, order, K, nb * block, M, K, kb * block, block,
+              K, kb * block, nb * block, 0};
 }
 
 }  // namespace
 
 // All operands row-major and contiguous, of one dtype (DT_F32 / DT_BF16);
 // idx int32. nb = number of B-wide blocks of the pruned dimension, kb the
-// kept count (the length of the keep prefix of `order`).
+// kept count (the length of the keep prefix of `order`). Each product's
+// *_launch_config takes its integer arguments and writes its launch.
 
 // #8. dy [M, N], w [nb*B, N], order [nb] -> dx [M, nb*B], or [M, kb*B]
 // with compact_out (then only order's keep prefix is read).
 extern "C" int repro_pruned_matmul_dx(
     const void* dy, const void* w, const int* order, void* dx, int M, int N,
     int nb, int kb, int block, int compact_out, int dtype, void* stream) {
-  const int nslots = compact_out ? kb : nb;
-  Args p{dy, w, dx, order, M, nslots * block, N, M, kb * block, block,
-         N, N, nslots * block, compact_out};
-  return launch<DxPolicy>(p, dtype, static_cast<cudaStream_t>(stream));
+  return launch<DxPolicy>(
+      dx_args(dy, w, order, dx, M, N, nb, kb, block, compact_out), dtype,
+      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int repro_pruned_matmul_dx_launch_config(
+    int M, int N, int nb, int kb, int block, int compact_out, int dtype,
+    LaunchRec* r) {
+  return config(dx_args(nullptr, nullptr, nullptr, nullptr, M, N, nb, kb,
+                        block, compact_out),
+                DxPolicy::kName, dtype, r, true);
 }
 
 // #9. x [M, nb*B] (or [M, kb*B] with x_compact), dy [M, N], order [nb]
@@ -251,35 +308,60 @@ extern "C" int repro_pruned_matmul_dx(
 extern "C" int repro_pruned_matmul_dw(
     const void* x, const void* dy, const int* order, void* dw, int M, int N,
     int nb, int kb, int block, int x_compact, int dtype, void* stream) {
-  const int ldx = (x_compact ? kb : nb) * block;
-  Args p{x, dy, dw, order, nb * block, N, M, kb * block, N, block,
-         ldx, N, N, x_compact};
-  return launch<DwPolicy>(p, dtype, static_cast<cudaStream_t>(stream));
+  return launch<DwPolicy>(
+      dw_args(x, dy, order, dw, M, N, nb, kb, block, x_compact), dtype,
+      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int repro_pruned_matmul_dw_launch_config(
+    int M, int N, int nb, int kb, int block, int x_compact, int dtype,
+    LaunchRec* r) {
+  return config(dw_args(nullptr, nullptr, nullptr, nullptr, M, N, nb, kb,
+                        block, x_compact),
+                DwPolicy::kName, dtype, r, true);
 }
 
 // #10. x [M, K], w [K, H], keep [kb] -> yc [M, kb*B].
 extern "C" int repro_outpruned_matmul(
     const void* x, const void* w, const int* keep, void* yc, int M, int K,
     int H, int kb, int block, int dtype, void* stream) {
-  Args p{x, w, yc, keep, M, kb * block, K, M, kb * block, block,
-         K, H, kb * block, 0};
-  return launch<OpPolicy>(p, dtype, static_cast<cudaStream_t>(stream));
+  return launch<OpPolicy>(op_args(x, w, keep, yc, M, K, H, kb, block), dtype,
+                          static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int repro_outpruned_matmul_launch_config(
+    int M, int K, int H, int kb, int block, int dtype, LaunchRec* r) {
+  return config(op_args(nullptr, nullptr, nullptr, nullptr, M, K, H, kb,
+                        block),
+                OpPolicy::kName, dtype, r, true);
 }
 
 // #11. dyc [M, kb*B], w [K, H], keep [kb] -> dx [M, K].
 extern "C" int repro_outpruned_matmul_dx(
     const void* dyc, const void* w, const int* keep, void* dx, int M, int K,
     int H, int kb, int block, int dtype, void* stream) {
-  Args p{dyc, w, dx, keep, M, K, kb * block, M, K, block,
-         kb * block, H, K, 0};
-  return launch<OpDxPolicy>(p, dtype, static_cast<cudaStream_t>(stream));
+  return launch<OpDxPolicy>(opdx_args(dyc, w, keep, dx, M, K, H, kb, block),
+                            dtype, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int repro_outpruned_matmul_dx_launch_config(
+    int M, int K, int H, int kb, int block, int dtype, LaunchRec* r) {
+  return config(opdx_args(nullptr, nullptr, nullptr, nullptr, M, K, H, kb,
+                          block),
+                OpDxPolicy::kName, dtype, r, true);
 }
 
 // #12. x [M, K], dyc [M, kb*B], order [nb] -> dw [K, nb*B].
 extern "C" int repro_outpruned_matmul_dw(
     const void* x, const void* dyc, const int* order, void* dw, int M, int K,
     int nb, int kb, int block, int dtype, void* stream) {
-  Args p{x, dyc, dw, order, K, nb * block, M, K, kb * block, block,
-         K, kb * block, nb * block, 0};
-  return launch<OpDwPolicy>(p, dtype, static_cast<cudaStream_t>(stream));
+  return launch<OpDwPolicy>(opdw_args(x, dyc, order, dw, M, K, nb, kb, block),
+                            dtype, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int repro_outpruned_matmul_dw_launch_config(
+    int M, int K, int nb, int kb, int block, int dtype, LaunchRec* r) {
+  return config(opdw_args(nullptr, nullptr, nullptr, nullptr, M, K, nb, kb,
+                          block),
+                OpDwPolicy::kName, dtype, r, true);
 }

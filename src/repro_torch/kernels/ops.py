@@ -30,6 +30,9 @@ wrapper: CUDA source (under ``csrc/``) <- the TPU kernel it replaces
   decode_attn.py:mla_decode_attn_2d
 * fused_paged_mla_decode_attention: mla_decode_attn.cu (the same body) <-
   decode_attn.py:mla_paged_decode_attn_2d
+* unfused_decode_attention: unfused_gqa_decode_attn.cu <-
+  decode_attn.py:unfused_gqa_decode_attn_2d (the three-launch baseline of
+  the fused decode attention)
 * pruned_matmul_dx, pruned_matmul_dw, outpruned_matmul,
   outpruned_matmul_dx, outpruned_matmul_dw: pruned_grad.cu <-
   pruned_matmul.py:<name>_2d
@@ -38,7 +41,12 @@ wrapper: CUDA source (under ``csrc/``) <- the TPU kernel it replaces
 ``torch.autograd.Function``s whose backward runs the last five kernels,
 as the reference's custom VJPs run its backward Pallas kernels (on CPU
 tensors, their plain versions). The decode attention defines no
-gradient, and neither do the paged and MLA decode attentions.
+gradient, and neither do the paged, MLA and unfused decode attentions.
+
+Every launch adds one to its wrapper's ``launches`` count. While the
+analyzer (:mod:`repro_torch.analysis`) records a run it installs a hook
+(:func:`set_launch_hook`) that also receives each launch's configuration,
+read from the C launcher's own ``*_launch_config`` export.
 """
 from __future__ import annotations
 
@@ -150,6 +158,29 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+_launch_hook = None
+
+
+def set_launch_hook(hook):
+    """Install ``hook(wrapper name, launches)``, called after every kernel
+    launch with the :class:`~repro_torch.kernels.build.Launch` records of
+    that call (``None`` removes it); returns the previous hook."""
+    global _launch_hook
+    prev, _launch_hook = _launch_hook, hook
+    return prev
+
+
+def _launched(wrapper, *configs) -> None:
+    """Count one launch of ``wrapper``'s kernel. ``configs`` are
+    ``(entry, *ints)`` keys of :func:`build.launch_config`, read only when
+    a hook is installed."""
+    wrapper.launches += 1
+    if _launch_hook is not None:
+        _launch_hook(wrapper.__name__, tuple(
+            rec for entry, *ints in configs
+            for rec in _build.launch_config(entry, *ints)))
+
+
 # ---------------------------------------------------------------------------
 # the backward family (kernels #8-#12 of the TPU package)
 # ---------------------------------------------------------------------------
@@ -164,7 +195,7 @@ def inverse_order(keep_idx: torch.Tensor, nb: int) -> torch.Tensor:
     argsort, so it costs no host sync."""
     keep = keep_idx.to(torch.int32)
     is_kept = torch.zeros((nb,), dtype=torch.bool, device=keep.device)
-    is_kept[keep.long()] = True
+    is_kept.index_fill_(0, keep.long(), True)
     pruned = torch.argsort(is_kept.to(torch.int32), stable=True)
     return torch.cat([keep, pruned[: nb - keep.shape[0]].to(torch.int32)])
 
@@ -256,7 +287,8 @@ def pruned_matmul_dx(dy: torch.Tensor, w: torch.Tensor, order: torch.Tensor,
         idx.data_ptr(), y.data_ptr(), M, N, nb, kb, block, int(compact_out),
         dt, _stream(dy.device))
     _build.check(err, what)
-    pruned_matmul_dx.launches += 1
+    _launched(pruned_matmul_dx, ("repro_pruned_matmul_dx", M, N, nb, kb,
+                                 block, int(compact_out), dt))
     return y
 
 
@@ -302,7 +334,8 @@ def pruned_matmul_dw(x: torch.Tensor, dy: torch.Tensor, order: torch.Tensor,
         idx.data_ptr(), y.data_ptr(), M, N, nb, kb, block, int(x_compact),
         dt, _stream(dy.device))
     _build.check(err, what)
-    pruned_matmul_dw.launches += 1
+    _launched(pruned_matmul_dw, ("repro_pruned_matmul_dw", M, N, nb, kb,
+                                 block, int(x_compact), dt))
     return y
 
 
@@ -341,7 +374,8 @@ def outpruned_matmul(x: torch.Tensor, w: torch.Tensor, keep_idx: torch.Tensor,
         x.contiguous().data_ptr(), w.contiguous().data_ptr(), idx.data_ptr(),
         y.data_ptr(), M, K, H, kb, block, dt, _stream(x.device))
     _build.check(err, what)
-    outpruned_matmul.launches += 1
+    _launched(outpruned_matmul, ("repro_outpruned_matmul", M, K, H, kb, block,
+                                 dt))
     return y
 
 
@@ -376,7 +410,8 @@ def outpruned_matmul_dx(dyc: torch.Tensor, w: torch.Tensor,
         idx.data_ptr(), y.data_ptr(), M, K, H, kb, block, dt,
         _stream(dyc.device))
     _build.check(err, what)
-    outpruned_matmul_dx.launches += 1
+    _launched(outpruned_matmul_dx, ("repro_outpruned_matmul_dx", M, K, H, kb,
+                                    block, dt))
     return y
 
 
@@ -416,7 +451,8 @@ def outpruned_matmul_dw(x: torch.Tensor, dyc: torch.Tensor,
         idx.data_ptr(), y.data_ptr(), M, K, nb, kb, block, dt,
         _stream(dyc.device))
     _build.check(err, what)
-    outpruned_matmul_dw.launches += 1
+    _launched(outpruned_matmul_dw, ("repro_outpruned_matmul_dw", M, K, nb, kb,
+                                    block, dt))
     return y
 
 
@@ -442,7 +478,8 @@ def block_pruned_matmul_plain(x2d: torch.Tensor, w: torch.Tensor,
 
 def _launch_block_pruned(x2d, w, keep, block, dt, *, x_compact=False,
                          K=None):
-    """Run the CUDA kernel; ``x_compact`` reads x as [M, kb*block]."""
+    """Run the CUDA kernel; ``x_compact`` reads x as [M, kb*block].
+    Returns the output and the launch's config key."""
     M = x2d.shape[0]
     N = w.shape[1]
     K = w.shape[0] if K is None else K
@@ -457,7 +494,7 @@ def _launch_block_pruned(x2d, w, keep, block, dt, *, x_compact=False,
         y.data_ptr(), M, K, N, kb, block, int(x_compact), splits, dt,
         _stream(x2d.device))
     _build.check(err, "block_pruned_matmul")
-    return y
+    return y, ("repro_block_pruned_matmul", M, N, kb, block, splits, dt)
 
 
 class _BlockPrunedMatmul(torch.autograd.Function):
@@ -472,9 +509,9 @@ class _BlockPrunedMatmul(torch.autograd.Function):
         if not x2d.is_cuda:
             return block_pruned_matmul_plain(x2d, w, keep_idx, block)
         dt, keep = _kernel_args("block_pruned_matmul", (x2d, w), keep_idx)
-        y = _launch_block_pruned(x2d.contiguous(), w.contiguous(), keep,
-                                 block, dt)
-        block_pruned_matmul.launches += 1
+        y, config = _launch_block_pruned(x2d.contiguous(), w.contiguous(),
+                                         keep, block, dt)
+        _launched(block_pruned_matmul, config)
         return y
 
     @staticmethod
@@ -555,8 +592,9 @@ def _launch_pruned_ffn(x2d, w_up, w_down, w_gate, keep, act, block, dt):
         part_up.data_ptr(), part_gate.data_ptr(), h.data_ptr(),
         M, K, H, kb, block, splits, act, dt, _stream(dev))
     _build.check(err, "fused_pruned_ffn (hidden)")
-    return _launch_block_pruned(h, w_down, keep, block, dt, x_compact=True,
-                                K=w_down.shape[0])
+    y, down = _launch_block_pruned(h, w_down, keep, block, dt, x_compact=True,
+                                   K=w_down.shape[0])
+    return y, (("repro_pruned_ffn_hidden", M, K, kb, block, splits, dt), down)
 
 
 class _FusedPrunedFFN(torch.autograd.Function):
@@ -578,11 +616,11 @@ class _FusedPrunedFFN(torch.autograd.Function):
                                           w_gate, act_fn, block)
         ops_ = (x2d, w_up, w_down) + ((w_gate,) if w_gate is not None else ())
         dt, keep = _kernel_args("fused_pruned_ffn", ops_, keep_idx)
-        y = _launch_pruned_ffn(x2d.contiguous(), w_up.contiguous(),
-                               w_down.contiguous(),
-                               None if w_gate is None else w_gate.contiguous(),
-                               keep, ACT_CODES[act_fn], block, dt)
-        fused_pruned_ffn.launches += 1
+        y, configs = _launch_pruned_ffn(
+            x2d.contiguous(), w_up.contiguous(), w_down.contiguous(),
+            None if w_gate is None else w_gate.contiguous(), keep,
+            ACT_CODES[act_fn], block, dt)
+        _launched(fused_pruned_ffn, *configs)
         return y
 
     @staticmethod
@@ -790,11 +828,76 @@ def fused_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         out.data_ptr(), B, Hkv, G, S, D, Dv, 1.0 / math.sqrt(D),
         int(window), splits, dt, _stream(q.device))
     _build.check(err, "fused_decode_attention")
-    fused_decode_attention.launches += 1
+    _launched(fused_decode_attention, ("repro_gqa_decode_attn", B, Hkv, G, D,
+                                       Dv, splits, dt))
     return out.reshape(B, Hq, 1, Dv)
 
 
 fused_decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# unfused GQA decode attention: the three-launch baseline (inference-only)
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30       # the TPU kernel's mask value: finite
+
+
+def unfused_gqa_decode_attn_plain(q, k_cache, v_cache, cur_pos,
+                                  window: int = 0) -> torch.Tensor:
+    """The unfused kernel's function in plain PyTorch: f32 scores over
+    every cache row with ``NEG_INF`` at the positions p > cur_pos (or
+    p <= cur_pos - window), a softmax over all S rows, an f32 weighted
+    sum. ``NEG_INF`` is finite, as in the TPU kernel, so a slot with no
+    attended row (cur_pos < 0) gets the uniform average of its S value
+    rows — where :func:`gqa_decode_attn_plain` (the fused kernels'
+    function) gives zeros. q [B, Hq, 1, D] -> [B, Hq, 1, Dv]."""
+    B, Hq, _, D = q.shape
+    Hkv, S, Dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[3]
+    qg = q.reshape(B, Hkv, Hq // Hkv, D).float()
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, k_cache.float()) / math.sqrt(D)
+    ok = attended_rows(S, cur_pos, window, q.device)[:, None, None, :]
+    p = torch.softmax(torch.where(ok, s, torch.full_like(s, NEG_INF)), -1)
+    out = torch.einsum("bhgs,bhsd->bhgd", p, v_cache.float())
+    return out.reshape(B, Hq, 1, Dv).to(q.dtype)
+
+
+def unfused_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, *, cur_pos: torch.Tensor,
+                             window: int = 0, out=None) -> torch.Tensor:
+    """Unfused GQA decode attention: :func:`fused_decode_attention`'s
+    contract in three launches (scores, softmax, weighted sum) with the
+    f32 [B, Hkv, G, S] score matrix in device memory, every cache row
+    read whatever cur_pos is. The baseline that shows what fusion saves;
+    no serve path calls it. Returns [B, Hq, 1, Dv] in q.dtype (into
+    ``out`` when given, on the card). Inference-only.
+    """
+    _check_decode_attn(q, k_cache, v_cache, cur_pos)
+    if not q.is_cuda:
+        return unfused_gqa_decode_attn_plain(q, k_cache, v_cache, cur_pos,
+                                             window)
+    what = "unfused_decode_attention"
+    B, Hq, _, D = q.shape
+    Hkv, S, Dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[3]
+    G = Hq // Hkv
+    _check_widths(what, **{"k_cache head dim": (k_cache.shape[3], D)})
+    dt, _ = _kernel_args(what, (q, k_cache, v_cache))
+    cur = _int32_on(cur_pos, q.device, what, "cur_pos")
+    scores = torch.empty((B, Hkv, G, S), dtype=torch.float32,
+                         device=q.device)
+    out = _out(out, (B, Hq, 1, Dv), q)
+    err = _build.library().lib.repro_unfused_gqa_decode_attn(
+        q.contiguous().data_ptr(), k_cache.contiguous().data_ptr(),
+        v_cache.contiguous().data_ptr(), cur.data_ptr(), scores.data_ptr(),
+        out.data_ptr(), B, Hkv, G, S, D, Dv, 1.0 / math.sqrt(D), int(window),
+        dt, _stream(q.device))
+    _build.check(err, what)
+    _launched(unfused_decode_attention, ("repro_unfused_gqa_decode_attn", B,
+                                         Hkv, G, S, D, Dv, dt))
+    return out
+
+
+unfused_decode_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -879,7 +982,8 @@ def fused_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         out.data_ptr(), B, Hkv, G, num_pages, ps, pps, D, Dv,
         1.0 / math.sqrt(D), int(window), splits, dt, _stream(q.device))
     _build.check(err, what)
-    fused_paged_decode_attention.launches += 1
+    _launched(fused_paged_decode_attention,
+              ("repro_gqa_paged_decode_attn", B, Hkv, G, D, Dv, splits, dt))
     return out
 
 
@@ -975,7 +1079,8 @@ def fused_mla_decode_attention(q_nope_abs: torch.Tensor,
         out.data_ptr(), B, H, R, Dr, S, 1.0 / math.sqrt(head_dim_for_scale),
         splits, dt, _stream(q_nope_abs.device))
     _build.check(err, what)
-    fused_mla_decode_attention.launches += 1
+    _launched(fused_mla_decode_attention,
+              ("repro_mla_decode_attn", B, H, R, Dr, splits, 0, dt))
     return out
 
 
@@ -1049,7 +1154,8 @@ def fused_paged_mla_decode_attention(q_nope_abs: torch.Tensor,
         1.0 / math.sqrt(head_dim_for_scale), splits, dt,
         _stream(q_nope_abs.device))
     _build.check(err, what)
-    fused_paged_mla_decode_attention.launches += 1
+    _launched(fused_paged_mla_decode_attention,
+              ("repro_mla_decode_attn", B, H, R, Dr, splits, 1, dt))
     return out
 
 
@@ -1064,7 +1170,7 @@ KERNEL_WRAPPERS = (block_pruned_matmul, fused_pruned_ffn,
                    fused_decode_attention, pruned_matmul_dx, pruned_matmul_dw,
                    outpruned_matmul, outpruned_matmul_dx, outpruned_matmul_dw,
                    fused_paged_decode_attention, fused_mla_decode_attention,
-                   fused_paged_mla_decode_attention)
+                   fused_paged_mla_decode_attention, unfused_decode_attention)
 
 
 def launch_counts() -> dict:

@@ -161,6 +161,14 @@ def _batch_axis(leaf: torch.Tensor, ax) -> Optional[int]:
     return ax_full.index("batch") if "batch" in ax_full else None
 
 
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device`` without waiting for the device: a
+    blocking upload waits for every launch queued before it (a host sync
+    in the step, rule R2 of repro_torch.analysis); an asynchronous one
+    from pageable memory is staged at once and needs no wait."""
+    return torch.as_tensor(a).to(device, non_blocking=True)
+
+
 def _clear_slots(cache, cache_ax, clear: np.ndarray) -> None:
     """Zero the recycled slots' rows of every batch-axis leaf, in place
     (the reference multiplies by ``1 - clear``)."""
@@ -170,7 +178,7 @@ def _clear_slots(cache, cache_ax, clear: np.ndarray) -> None:
     for leaf, ax in _tree_leaves_with_axes(cache, cache_ax):
         b = _batch_axis(leaf, ax)
         if b is not None:
-            leaf.index_fill_(b, torch.as_tensor(rows, device=leaf.device), 0)
+            leaf.index_fill_(b, _upload(rows, leaf.device), 0)
 
 
 def _merge_invalid(old, new, cache_ax, valid: torch.Tensor):
@@ -298,17 +306,16 @@ class ServeEngine:
                 # plain decode step); clear marks slots recycled this step;
                 # pages is the host page table of a paged engine
                 _clear_slots(cache, cache_ax, clear)
-                pages_d = (None if pages is None
-                           else torch.as_tensor(pages).to(dev))
+                pages_d = None if pages is None else _upload(pages, dev)
                 ctx = (ControlContext(
                     static=static, bucket_by_rank=plan["bucket_by_rank"],
                     pri=plan["pri"], use_kernel=wc.use_kernel)
                     if static is not None else None)
                 p_eff = np.where(valid > 0.0, pos, invalid_pos).astype(
                     np.int32)
-                tok_d = torch.as_tensor(tokens).to(dev)
-                pos_d = torch.as_tensor(p_eff).to(dev)
-                valid_d = torch.as_tensor(valid).to(dev)
+                tok_d = _upload(tokens, dev)
+                pos_d = _upload(p_eff, dev)
+                valid_d = _upload(valid, dev)
                 toks = torch.zeros(tokens.shape, dtype=torch.int32,
                                    device=dev)
                 # each lane's valid substeps are a prefix, so substeps past
@@ -724,6 +731,65 @@ class ServeEngine:
         """Flush/close the telemetry trace (safe to call repeatedly)."""
         self.plane.close()
 
+    # -- introspection -------------------------------------------------------
+    def _analysis_args(self, plan=None):
+        """One engine step's arguments for the analyzer: every slot feeding
+        one token at its own position (a recycled slot cleared), the
+        engine's own params and cache (hot state, argnum 1)."""
+        B, C = self.num_slots, self.prefill_chunk
+        tokens = np.zeros((C, B), np.int32)
+        tokens[0] = np.arange(B) + 3
+        pos = np.full((C, B), paging_lib.INVALID_POS, np.int32)
+        pos[0] = np.arange(B) + 2
+        valid = np.zeros((C, B), np.float32)
+        valid[0] = 1.0
+        clear = np.zeros((B,), np.float32)
+        clear[0] = 1.0
+        pages = self.alloc.table() if self.alloc is not None else None
+        return (self.params, self.cache, tokens, pos, valid, clear, plan,
+                pages)
+
+    def analysis_cases(self, step: str = "serve_engine_step"):
+        """Analyzer cases for THIS engine's base step (repro_torch.analysis):
+        the exact step ``step()`` drives when no controller runs, with the
+        KV cache declared hot state (argnum 1), so R2 proves it is updated
+        in place."""
+        from repro_torch.analysis.registry import TraceCase
+
+        def fn(*args):
+            with torch.inference_mode():
+                return self._base_step(*args[:7], pages=args[7])
+        return [TraceCase(
+            step=step, name=f"base_tp{self.tp}", fn=fn,
+            args=self._analysis_args(), state_argnums=(1,),
+            signature=f"serve_base_tp{self.tp}")]
+
+    def analysis_decode_cases(self, spellings):
+        """Analyzer cases for the controlled serve step of one plan
+        signature, built by the plane's builder directly (not through its
+        build cache, which would hand back one object for every spelling)
+        from each ``(label, PlanStatic)`` of ``spellings``: the first is the
+        case, the rest are its retraces (R1). Every rank at bucket 1."""
+        from repro_torch.analysis.registry import TraceCase
+        plan = {"bucket_by_rank": np.ones((self.tp,), np.int32),
+                "pri": self.plane.identity_pri}
+
+        def step_fn(static):
+            built = self.plane.builder(static)
+
+            def fn(*args):
+                with torch.inference_mode():
+                    return built(*args[:7], pages=args[7])
+            return fn
+        args = self._analysis_args(plan)
+        (_, first), rest = spellings[0], spellings[1:]
+        return [TraceCase(
+            step="serve_decode_step", name=f"controlled_tp{self.tp}",
+            fn=step_fn(first), args=args, state_argnums=(1,),
+            signature=first.canonical().signature_str(),
+            retrace=tuple((f"{label}-spelling", step_fn(st), args)
+                          for label, st in rest))]
+
 
 #: The zero-traffic stats record: every key of the non-empty record,
 #: all zero.
@@ -836,6 +902,44 @@ def main(argv=None):
           "(modeled clock)")
     print(f"plan builds: {eng.plane.counts()}; preemptions "
           f"{eng.preemptions}")
+
+
+# ---------------------------------------------------------------------------
+# static-analysis registration (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+from repro_torch.analysis import registry as _analysis  # noqa: E402
+
+
+def _an_engine(env, control):
+    return ServeEngine("yi-6b", num_slots=2, max_len=16, control=control,
+                       device=env.device)
+
+
+def _an_serve_engine_cases(env):
+    eng = _an_engine(env, ControlConfig(fused_attention=True))
+    try:
+        return eng.analysis_cases()
+    finally:
+        eng.close()
+
+
+def _an_decode_cases(env):
+    eng = _an_engine(env, ControlConfig(
+        mode="zero", hetero_kind="contention", chi=4.0, sim_ranks=8,
+        use_kernel=True, fused_attention=True))
+    try:
+        # two spellings of one canonical plan signature (R1)
+        st = eng.plane.static
+        return eng.analysis_decode_cases([
+            ("mig_shed", dataclasses.replace(st, mig_shed=(2,))),
+            ("mig_blocks", dataclasses.replace(st, mig_blocks=2))])
+    finally:
+        eng.close()
+
+
+_analysis.register("serve_engine_step", _an_serve_engine_cases)
+_analysis.register("serve_decode_step", _an_decode_cases)
 
 
 if __name__ == "__main__":

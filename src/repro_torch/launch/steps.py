@@ -76,3 +76,67 @@ def build_train_step(cfg: ModelConfig, train: TrainConfig = TrainConfig(),
                            "grad_norm": om["grad_norm"], "lr": om["lr"]}
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# static-analysis registration (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+from repro_torch.analysis import registry as _analysis  # noqa: E402
+
+
+def _an_control_static(e: int, spelling: str) -> PlanStatic:
+    """Two spellings of the SAME canonical plan (mig_shed vs the legacy
+    mig_blocks scalar) — R1 proves they build the same program, which is
+    what makes the build cache's canonical-signature keying sound."""
+    kw = dict(buckets=(0.0, 0.25, 0.5), block_size=8, tp_size=e)
+    if spelling == "mig_shed":
+        return PlanStatic(mig_shed=(2,), **kw)
+    return PlanStatic(mig_blocks=2, **kw)
+
+
+def _an_train_cases(env):
+    import numpy as np
+    import torch
+
+    from repro_torch.config import get_config, smoke_variant
+    from repro_torch.data.pipeline import PatternImageStream, patchify
+
+    cfg = smoke_variant(get_config("vit-1b"))
+    dev = torch.device(env.device)
+    train = TrainConfig()
+    model = vit_lib.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                         torch.float32, dev)
+    opt = adamw.init(dict(model.named_parameters()))
+    raw = next(iter(PatternImageStream(batch_size=4, seed=0)))
+    batch = {"patches": torch.from_numpy(patchify(raw["images"])).to(dev),
+             "labels": torch.from_numpy(np.asarray(raw["labels"])).to(dev)}
+    cases = [_analysis.TraceCase(
+        step="train_step", name="dense_tp1",
+        fn=build_train_step(cfg, train, None, total_steps=4),
+        args=(model, opt, batch, None), signature="dense_tp1")]
+
+    # tp 4: rank 0 resized (bucket 1) and the source of a 2-block shed,
+    # through the kernel wrappers; built from both spellings of the plan
+    e = 4
+
+    def build(spelling):
+        st = _an_control_static(e, spelling)
+        return st, build_train_step(cfg, train, st, total_steps=4,
+                                    use_kernel=True)
+
+    st_a, fn_a = build("mig_shed")
+    _, fn_b = build("mig_blocks")
+    plan = {"bucket_by_rank": np.asarray([1, 0, 0, 0], np.int32),
+            "mig_src": np.asarray([0], np.int32),
+            "pri": scopes_lib.plan_pri_arrays(
+                scopes_lib.control_scopes(cfg, st_a), {}, e, device=dev)}
+    args = (model, opt, batch, plan)
+    cases.append(_analysis.TraceCase(
+        step="train_step", name=f"controlled_tp{e}", fn=fn_a, args=args,
+        signature=st_a.canonical().signature_str(),
+        retrace=(("mig_blocks-spelling", fn_b, args),)))
+    return cases
+
+
+_analysis.register("train_step", _an_train_cases)

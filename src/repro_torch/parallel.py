@@ -19,19 +19,39 @@ The collectives are explicit sums behind a small interface, so that
 * :meth:`TPGroup.chunked_psum` — the reference's ``chunked_psum``: the
   last dim split into ``n`` independent sums (the divisor fallback
   kept);
-* :meth:`TPGroup.bcast_from` — the masked psum of the reference's
-  ``migration._bcast_from``: every rank contributes zeros except the
-  source. In one process it reads the source's value directly — the
-  other terms are exact zeros — and autograd routes the gradient back
-  to the source's shard only, as JAX's transposed psum does.
+* :meth:`TPGroup.bcast_grouped` — the masked psum of the reference's
+  ``migration.fused_migration_broadcast``: every migration slot's
+  buffers from its own source in ONE grouped psum over all of them, to
+  which every rank contributes zeros except each slot's source. In one
+  process it reads each source's value directly — the other terms are
+  exact zeros — and autograd routes the gradient back to the source's
+  shard only, as JAX's transposed psum does.
+
+While the analyzer records a run it installs a hook
+(:func:`set_collective_hook`) that receives each collective: its kind,
+operand count and operand shapes (rule R3).
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence, TypeVar
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
-T = TypeVar("T")
+_collective_hook = None
+
+
+def set_collective_hook(hook):
+    """Install ``hook(kind, n_operands, shapes)``, called once per
+    collective (``None`` removes it); returns the previous hook."""
+    global _collective_hook
+    prev, _collective_hook = _collective_hook, hook
+    return prev
+
+
+def _report(kind: str, operands) -> None:
+    if _collective_hook is not None:
+        _collective_hook(kind, len(operands),
+                         tuple(tuple(t.shape) for t in operands))
 
 
 class TPGroup:
@@ -71,6 +91,7 @@ class TPGroup:
         out = parts[0]
         for p in parts[1:]:
             out = out + p
+        _report("psum", (out,))
         return out
 
     def chunked_psum(self, parts: Sequence[torch.Tensor],
@@ -93,14 +114,29 @@ class TPGroup:
         return torch.cat([self.psum([pc[i] for pc in pieces])
                           for i in range(n)], dim=-1)
 
-    def bcast_from(self, src: int, value_of: Callable[[int], T]) -> T:
-        """The value of rank ``src`` on every rank (masked psum).
-
-        ``value_of(rank)`` is a rank's contribution; only the source's
-        survives the masked sum, so only it is computed. An idle source
-        (-1) is the caller's to handle: every rank then contributes
-        zeros."""
+    def _check_src(self, src: int) -> None:
         if not isinstance(src, int) or not 0 <= src < self.e:
             raise ValueError(f"source rank {src!r} outside the group of "
                              f"{self.e}")
-        return value_of(src)
+
+    def bcast_grouped(self, srcs: Sequence[int],
+                      value_of: Callable[[int, int], Sequence[Optional[
+                          torch.Tensor]]]) -> List[Tuple]:
+        """Every slot's buffers from that slot's source, in ONE masked psum.
+
+        ``value_of(rank, slot)`` is a rank's contribution to slot ``slot``
+        (a tuple of tensors, ``None`` for an absent one); only each slot's
+        source survives the masked sum, so only it is computed. An idle
+        slot (source -1) gets zeros shaped as rank 0's contribution.
+        Returns one tuple per slot."""
+        out = []
+        for s, src in enumerate(srcs):
+            if src != -1:
+                self._check_src(src)
+                out.append(tuple(value_of(src, s)))
+            else:
+                out.append(tuple(None if t is None else torch.zeros_like(t)
+                                 for t in value_of(0, s)))
+        _report("bcast_grouped",
+                [t for bufs in out for t in bufs if t is not None])
+        return out

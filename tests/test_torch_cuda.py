@@ -329,3 +329,68 @@ def test_cuda_paged_options_raise_instead_of_falling_back(cuda_device):
             torch.ones((2, 8, 4), dtype=torch.float16, device=cuda_device),
             cur_pos=cur, head_dim_for_scale=12)
     assert set(tops.launch_counts().values()) == {0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_unfused_decode_attention_matches_plain(cuda_device, dtype):
+    """#7 at ragged S and head dims (no padding anywhere), ragged
+    positions with the engine's invalid lane and an all-masked lane, a
+    window, into a NaN-filled output."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    tops.reset_launch_counts()
+    q, k, v = rnd(5, 6, 1, 40), rnd(5, 2, 203, 40), rnd(5, 2, 203, 40)
+    cur = torch.tensor([0, 77, 2 ** 30, 202, -1], dtype=torch.int32,
+                       device=cuda_device)
+    for window in (0, 50):
+        out = torch.full((5, 6, 1, 40), float("nan"), dtype=dtype,
+                         device=cuda_device)
+        got = tops.unfused_decode_attention(q, k, v, cur_pos=cur,
+                                            window=window, out=out)
+        assert got.data_ptr() == out.data_ptr()
+        assert bool(torch.isfinite(got.float()).all())
+        _close(got, tops.unfused_gqa_decode_attn_plain(q, k, v, cur, window),
+               dtype)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["unfused_decode_attention"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_launch_configs_fit_and_are_priced(cuda_device):
+    """R4 on the real build: every kernel function of the ptxas log is
+    found, and the launches of all twelve wrappers at the analyzer's
+    probe shapes fit the card's budget; #5 at a 4096-wide latent does
+    not, and is named before any launch."""
+    from repro_torch.analysis import engine, registry, smem
+    from repro_torch.kernels import build
+
+    res = smem.kernel_resources()
+    assert len(res) >= 20 and all(r.registers > 0 for r in res.values())
+    launches = []
+    prev = tops.set_launch_hook(lambda name, ls: launches.append((name, ls)))
+    try:
+        env = registry.CaseEnv(device="cuda")
+        import repro_torch.analysis.micro  # noqa: F401
+        for case in registry.provider("micro_kernel")(env):
+            engine.run_once(case.fn, case.args, "cuda")
+    finally:
+        tops.set_launch_hook(prev)
+    assert {name for name, _ in launches} == {
+        w.__name__ for w in tops.KERNEL_WRAPPERS}
+    flat = [ln for _, ls in launches for ln in ls]
+    assert smem.check_budget(flat, res, smem.device_budget()) == []
+    big = build.launch_config("repro_mla_decode_attn", 8, 16, 4096, 64, 32,
+                              0, 0)
+    with pytest.raises(smem.SmemBudgetError, match="mla_partial_kernel"):
+        smem.assert_fits(big)
+
+
+@pytest.mark.cuda
+def test_cuda_analysis_check_and_mutate(cuda_device, capsys):
+    """The gate on the card: the whole matrix clean, every mutant firing."""
+    from repro_torch.analysis.__main__ import main
+    assert main(["--check", "--mutate"]) == 0, capsys.readouterr().out

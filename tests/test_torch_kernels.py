@@ -213,6 +213,8 @@ def test_cpu_tensors_never_move_a_launch_counter():
         qa, qr, torch.from_numpy(_arr(rng, (5, 8, 16))),
         torch.from_numpy(_arr(rng, (5, 8, 4))), pages=pages, cur_pos=cur,
         head_dim_for_scale=12)
+    tops.unfused_decode_attention(q, kv, kv,
+                                  cur_pos=torch.tensor([3, 2 ** 30]))
     counts = tops.launch_counts()
     assert set(counts) == {"block_pruned_matmul", "fused_pruned_ffn",
                            "fused_decode_attention", "pruned_matmul_dx",
@@ -220,5 +222,6 @@ def test_cpu_tensors_never_move_a_launch_counter():
                            "outpruned_matmul_dx", "outpruned_matmul_dw",
                            "fused_paged_decode_attention",
                            "fused_mla_decode_attention",
-                           "fused_paged_mla_decode_attention"}
+                           "fused_paged_mla_decode_attention",
+                           "unfused_decode_attention"}
     assert set(counts.values()) == {0}

@@ -78,6 +78,30 @@ def test_fused_mla_decode_attention_matches_jax():
     assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
+def test_fused_mla_invalid_lane_contract_at_ragged_cache():
+    # S = 200 is not a whole number of the reference's 128-row tiles: its
+    # wrapper pads the rows to 256 with zeros, and the lane at INVALID
+    # attends those padded rows; the port has no padding. That lane is
+    # discarded by the engine (its tokens are never read), so it is
+    # excluded here — the contract in ROADMAP.md, queue C. Every valid
+    # lane must agree.
+    rng = np.random.default_rng(2)
+    B, H, R, Dr, S = 4, 5, 32, 8, 200
+    qa, qr = _mla_inputs(rng, B, H, R, Dr)
+    lat = rng.standard_normal((B, S, R)).astype(np.float32)
+    rope = rng.standard_normal((B, S, Dr)).astype(np.float32)
+    cur = np.asarray([0, 150, INVALID, S - 1], np.int32)
+    ref = np.asarray(jops.fused_mla_decode_attention(
+        qa, qr, lat, rope, cur_pos=cur, head_dim_for_scale=12))
+    got = tops.fused_mla_decode_attention(
+        *_t(qa, qr, lat, rope), cur_pos=torch.from_numpy(cur),
+        head_dim_for_scale=12).numpy()
+    valid = [0, 1, 3]
+    assert np.isfinite(got).all()
+    assert np.abs(got[valid] - ref[valid]).max() \
+        <= 1e-5 * np.abs(ref[valid]).max()
+
+
 def test_fused_paged_mla_decode_attention_matches_jax():
     rng = np.random.default_rng(1)
     B, H, R, Dr, ps, pps, num_pages = 4, 5, 32, 8, 8, 5, 24

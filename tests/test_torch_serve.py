@@ -213,3 +213,23 @@ def test_port_imports_neither_jax_nor_repro():
                          capture_output=True, text=True,
                          env={**os.environ, "PYTHONPATH": SRC})
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_port_analysis_imports_neither_jax_nor_repro():
+    # the analyzer package, its engine and rules, and every provider it
+    # loads (the port's train and serve drivers, the micro probes)
+    code = ("import sys, json\n"
+            "import repro_torch.analysis as an\n"
+            "from repro_torch.analysis import engine, rules, smem, mutants\n"
+            "names = an.load_providers()\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
+            "or m.startswith('repro.'))\n"
+            "print(json.dumps([bad, names]))\n")
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": SRC})
+    bad, names = json.loads(out.stdout.strip().splitlines()[-1])
+    assert bad == []
+    assert {"train_step", "serve_decode_step", "serve_engine_step",
+            "micro_collective", "micro_kernel"} <= set(names)

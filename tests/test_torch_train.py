@@ -295,10 +295,20 @@ def test_group_collectives():
     w = torch.arange(48.0).reshape(4, 12)
     assert torch.equal(g.cols(w, 2), w[:, 6:9])
     assert torch.equal(g.rows(w.t(), 1), w.t()[3:6])
-    assert g.bcast_from(3, lambda r: parts[r]) is parts[3]
-    for bad in (-1, 4):
+    # the grouped masked broadcast: each slot gets its source's buffers
+    # (only the source's are computed), an idle slot (-1) zeros
+    asked = []
+
+    def value_of(r, s):
+        asked.append((r, s))
+        return parts[r], None
+    got = g.bcast_grouped([3, -1], value_of)
+    assert got[0][0] is parts[3] and got[0][1] is None
+    assert torch.equal(got[1][0], torch.zeros_like(parts[0]))
+    assert got[1][1] is None and asked == [(3, 0), (0, 1)]
+    for bad in (-2, 4):
         with pytest.raises(ValueError):
-            g.bcast_from(bad, lambda r: parts[r])
+            g.bcast_grouped([bad], value_of)
     with pytest.raises(ValueError):
         g.psum(parts[:3])
 
