@@ -60,10 +60,12 @@ Phases, each printing one line of its own; any failure exits non-zero:
               versions at the shapes the ViT-1B train run gives it
               (tp 4, 520 rows, block 8), f32 and bf16 with the same
               tolerances, every output NaN-filled before the launch so a
-              skipped element shows; block 128 at a small shape with the
-              compact modes and an unsorted keep list; each timed like
-              phase 2, plus the forward kernels (#2, #3) at the train
-              shapes.
+              skipped element shows, and a second call that must give the
+              same bits; block 128 at a small shape with the compact modes
+              and an unsorted keep list; each timed like phase 2 (#8 and
+              #10, on the tensor cores, also beside a 3xTF32 bound at
+              495/3 TFLOP/s), plus the forward kernels (#2, #3) at the
+              train shapes.
 7. train-reference — one controlled step (rank 0 resized and a migration
               source) of a two-layer, full-width ViT-1B in f32 at tp 4:
               loss and every gradient, kernel path against plain path.
@@ -93,7 +95,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,
+              # f32 products on the tensor cores as 3xTF32 (#8, #10)
+              "3xtf32": 495e12 / 3}
+TENSOR_CORE_F32 = ("pruned_matmul_dx", "outpruned_matmul")
 F32_TOL, BF16_TOL = 1e-4, 2e-2
 REPLACES = {
     "block_pruned_matmul": "src/repro/kernels/pruned_matmul.py:81",
@@ -287,10 +292,14 @@ def main():
         checked.append(f"{name} {case} {dname}")
         t = ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else
                       f"{k} {v}" for k, v in timings.items())
+        tc = ""
+        if name in TENSOR_CORE_F32 and dname == "float32" and flops:
+            tc_ms, tc_by = bound_ms(nbytes, flops, "3xtf32")
+            tc = f"; 3xTF32 tensor-core bound {tc_ms:.4f} ms ({tc_by})"
         say(phase, f"{name} {case} {dname}: max|err| {e:.3e} "
             f"(max|ref| {m:.3e}, rel {e / max(m, 1e-30):.2e}) "
             f"{'ok' if ok else 'FAIL'}; {t}; bound {b_ms:.4f} ms "
-            f"({b_by})")
+            f"({b_by}){tc}")
         if not ok:
             failures.append(f"{name} {case} {dname}")
         if representative:
@@ -1169,14 +1178,19 @@ def main():
     def grad_case(name, case, dtype, make, kernel, plain, library, out_shape,
                   nbytes, flops, rep, timed=True):
         """One kernel check: its output starts as NaN (a skipped element
-        shows), then the timings when ``timed``."""
+        shows), a second call into a fresh NaN buffer must give the same
+        bits, then the timings when ``timed``."""
         n_sets = copies_for(nbytes) if timed else 1
         sets = [make() for _ in range(n_sets)]
         out = torch.full(out_shape, float("nan"), dtype=dtype, device=dev)
         got = kernel(sets[0], out)
+        again = kernel(sets[0], torch.full_like(out, float("nan")))
         torch.cuda.synchronize()
         if got.data_ptr() != out.data_ptr():
             raise SystemExit(f"{name}: the kernel did not write into `out`")
+        if not torch.equal(got, again):
+            failures.append(f"{name} {case} {dtype}: two runs differ")
+            say("grad-kernels", f"{name} {case}: two runs differ (FAIL)")
         ref = plain(sets[0])
         timings = {}
         if timed:
@@ -1398,7 +1412,8 @@ def main():
     if failures:
         raise SystemExit(f"grad kernel checks failed: {failures}")
     say("grad-kernels", f"all {len(checked)} kernel checks (phases 2 and 6) "
-        "within tolerance")
+        "within tolerance; the backward family's outputs bit-identical "
+        "between two runs")
 
     # ---------------------------------------------------------------- 7
     # one controlled step of a two-layer, full-width ViT-1B in f32 at

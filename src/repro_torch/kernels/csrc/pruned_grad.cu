@@ -17,30 +17,58 @@
 // only in their index maps: an operand index that runs over a pruned
 // dimension reads block idx[c / B] at offset c % B (B = the pruning block,
 // resolved per B-wide block, so block 8 and block 128 run the same code),
-// and the output is written compact or scattered back through idx. One
-// templated core (`pruned_gemm_kernel`) holds the tiling; five small
-// policy structs hold the maps. `idx` is the keep ids (#10, #11) or the
+// and the output is written compact or scattered back through idx. Two
+// templated cores (below) hold the tiling; five small policy structs
+// hold the maps. `idx` is the keep ids (#10, #11) or the
 // inverse permutation `order` = keep ids, then pruned ids (#8, #9, #12):
 // its first kb entries pair compact slot k with block idx[k] in the
 // caller's order, sorted or not.
 //
 // What bounds it on the H100: on the training path (ViT-1B at tp = 4,
-// M = 520 rows, d = 2048, f32) every product does 2*M flops per weight
+// M = 520 rows, d = 2048) every product does 2*M flops per weight
 // element and per output element, about 520 flops per byte read once:
-// above the f32 ridge of 67 TFLOP/s / 3.35 TB/s = 20 flops per byte, so
-// the products are bound by operations. Design: a simple CUDA-core
-// tiled GEMM, 64 x 64 output tiles per block of 256 threads, each thread
-// a 4 x 4 register tile with f32 accumulation; operand tiles of depth 16
-// staged in shared memory, loaded so that neighbouring threads read
-// neighbouring addresses along whichever axis of the operand is
-// contiguous. No split of the contraction (so no float atomics and no
-// partials: the result is deterministic), no tensor cores, no TMA —
-// those are for a later PR.
+// above the ridge of every rate of the card, so the products are bound
+// by operations. Two cores run them.
 //
-// Zeros are written by the kernel: an output tile that lies wholly in the
-// pruned region skips the contraction and stores zeros, and a tile that
-// straddles it stores zeros at its pruned positions. No output element is
-// left unwritten, so an output allocated with torch.empty is safe.
+// #10 and #8 run `pruned_gemm_tc_kernel`, designed for Hopper:
+//   - tensor cores through mma.sync: m16n8k16 bf16 with f32 accumulation
+//     for bf16 operands; for f32 operands m16n8k8 TF32 in the 3xTF32 form
+//     (each operand split into its top 10 mantissa bits and the rest,
+//     both read as TF32, summed as lo*hi + hi*lo + hi*hi), which keeps
+//     about f32's accuracy at a third of the TF32 rate (495/3 TFLOP/s);
+//     fragments through ldmatrix;
+//   - 64 x 64 output tiles per block of 4 warps (32 x 32 each), operand
+//     tiles of depth 32 in a 3-stage cp.async ring in dynamic shared
+//     memory, 16 bytes a copy, out-of-range copies zero-filled (src-size
+//     0). The column gather at block 8 is whole 16-byte copies (8 f32 =
+//     two copies, 8 bf16 = one). An operand whose rows, stride or block
+//     are not 16-byte multiples takes a predicated element-wise path
+//     inside the same kernel;
+//   - the contraction split across grid.z so that the 36 output tiles of
+//     the train shapes fill 132 SMs (the wrapper picks the count from the
+//     shapes and the SM count). Each split writes f32 partials of the
+//     kept region only; a second launch sums them in a fixed order (no
+//     float atomics, so two runs are bit-identical) and writes the
+//     output: `reduce_splits_kernel` where it is contiguous (#10, #8
+//     compact_out), `reduce_splits_scatter_kernel` through #8's map
+//     otherwise. There, extra blocks of the first launch write the zeros
+//     of the pruned columns while the product runs.
+//   It is bound by operations at 495/3 (f32) or 989 (bf16) TFLOP/s,
+//   except #8 with few kept blocks (`wq`: 32 of 256), where writing its
+//   mostly-zero output makes it bound by bytes.
+// #9, #11 and #12 still run `pruned_gemm_kernel`: 64 x 64 tiles on CUDA
+// cores (4 x 4 per thread, f32 accumulation), depth-16 tiles staged with
+// plain loads, one launch, no split; bound by operations at 67 TFLOP/s. #9 and #12 read A along its rows
+// (A is x transposed) and #11 gathers its contraction through the map,
+// which the tensor-core core's loaders do not take; they keep the old
+// design, so their times go on measuring it, until each is redesigned.
+//
+// Zeros are written by the kernels: the old core's tiles that lie wholly
+// in the pruned region skip the contraction and store zeros, and the new
+// core's extra blocks write #8's pruned columns. No output element is left
+// unwritten, so an output allocated with torch.empty is safe.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -60,6 +88,7 @@ struct Args {
   int blk;          // pruning block
   int lda, ldb, ldc;   // row strides of the operands as stored
   int flag;         // compact_out (#8) / x_compact (#9)
+  int a_vec, b_vec, c_vec;  // tensor-core core: 16-byte copies / stores
 };
 
 __device__ __forceinline__ long mapped(const Args& p, int c) {
@@ -75,6 +104,7 @@ struct DxPolicy {
   static constexpr const char* kName = "DxPolicy";
   static constexpr bool A_CONTIG_T = true;
   static constexpr bool B_CONTIG_T = true;
+  static constexpr bool SCATTER = true;   // unless compact_out
   __device__ static long a_off(const Args& p, int i, int t) {
     return (long)i * p.lda + t;
   }
@@ -107,15 +137,14 @@ struct OpPolicy {
   static constexpr const char* kName = "OpPolicy";
   static constexpr bool A_CONTIG_T = true;
   static constexpr bool B_CONTIG_T = false;
+  static constexpr bool SCATTER = false;
   __device__ static long a_off(const Args& p, int i, int t) {
     return (long)i * p.lda + t;
   }
   __device__ static long b_off(const Args& p, int t, int j) {
     return (long)t * p.ldb + mapped(p, j);
   }
-  __device__ static long c_off(const Args& p, int i, int j) {
-    return (long)i * p.ldc + j;
-  }
+  // the output is compact and contiguous: reduce_splits_kernel writes it
 };
 
 // #11: A = dyc [M, kb*B]; B(t, j) = w[j, col(t)]; out dense [M, K].
@@ -219,6 +248,459 @@ pruned_gemm_kernel(Args p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core core (#8, #10): split contraction, cp.async ring, mma.sync
+// ---------------------------------------------------------------------------
+
+constexpr int kTcRows = 64;      // output tile: rows
+constexpr int kTcCols = 64;      // output tile: columns
+constexpr int kTcDepth = 32;     // contraction depth of one ring stage
+constexpr int kTcStages = 3;     // ring stages in flight
+constexpr int kTcWarpsN = kTcCols / 32;  // one warp per 32 x 32 of the tile
+constexpr int kTcThreads = kTcRows / 32 * kTcWarpsN * 32;
+
+// Shared-memory layout of one ring stage for operands of type T. A is
+// [kTcRows][kLdT] (contiguous along t); B is [kTcCols][kLdT] when it is
+// contiguous along t (#8), else [kTcDepth][kLdJ] (#10). The pads (16 bytes
+// per t-row, 8 elements per j-row) keep the fragment loads of a warp on
+// 32 distinct banks and every row 16-byte aligned.
+template <typename Policy, typename T>
+struct TcLayout {
+  static constexpr int kVec = 16 / (int)sizeof(T);    // elements per copy
+  static constexpr int kLdT = kTcDepth + kVec;
+  static constexpr int kLdJ = kTcCols + 8;
+  static constexpr int kA = kTcRows * kLdT;
+  static constexpr int kB = Policy::B_CONTIG_T ? kTcCols * kLdT
+                                               : kTcDepth * kLdJ;
+  static constexpr int kStage = kA + kB;
+  static constexpr int kBytes = kTcStages * kStage * (int)sizeof(T);
+};
+
+template <typename Policy>
+int tc_smem_bytes(int dtype) {
+  return dtype == DT_BF16 ? TcLayout<Policy, __nv_bfloat16>::kBytes
+                          : TcLayout<Policy, float>::kBytes;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// x = hi + lo exactly: hi keeps the top 10 bits of x's mantissa (a TF32
+// value), lo is the remainder, which the tensor core reads as TF32 by
+// dropping its own low 13 bits. hi*hi + hi*lo + lo*hi then misses x's
+// products by about 2^-20 relative: f32's accuracy, not TF32's 2^-10.
+// A mask and a subtraction, not cvt.rna (a slow conversion pipe).
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const unsigned* a,
+                                         const unsigned* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
+                                         const unsigned* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8 x 8 matrices of 16-bit elements (rows of 16 bytes) from shared
+// memory; lane l gives the row address of matrix l / 8, row l % 8, and
+// gets in r[m] the pair at (row l / 4, columns 2 (l % 4), +1) of matrix
+// m. On f32 data a pair is one float: column l % 4 of a row of 4 floats.
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* row) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// The same, each matrix transposed: r[m] holds (rows 2 (l % 4), +1;
+// column l / 4).
+__device__ __forceinline__ void ldsm_x4_t(unsigned* r, const void* row) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// One ring stage's products into the warp's 32 x 32 accumulator
+// acc[m16 tile][n8 tile][4], fragments in the mma layouts of the PTX ISA
+// (g = lane / 4 picks A's row and B's column, tg = lane % 4 the
+// contraction index). Lane l addresses row l % 8 of matrix l / 8 of each
+// ldmatrix.x4: for A, matrix m covers rows + 8 (m & 1) and the second
+// half of the k-step when m >= 2; for B, the n8 tile + (m >> 1) and the
+// second half of the k-step when m is odd.
+template <typename Policy, typename T>
+__device__ __forceinline__ void tc_stage(float (&acc)[2][4][4], const T* As,
+                                         const T* Bs, int wm, int wn,
+                                         int lane) {
+  using L = TcLayout<Policy, T>;
+  const int lr = lane & 7, lm = lane >> 3;
+  if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+    for (int k = 0; k < kTcDepth; k += 8) {
+      unsigned ahi[2][4], alo[2][4], bhi[4][2], blo[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        unsigned v[4];
+        ldsm_x4(v, As + (wm * 32 + mt * 16 + (lm & 1) * 8 + lr) * L::kLdT +
+                       k + (lm >> 1) * 4);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          split_tf32(__uint_as_float(v[q]), ahi[mt][q], alo[mt][q]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; nt += 2) {
+        unsigned v[4];
+        if constexpr (Policy::B_CONTIG_T) {
+          ldsm_x4(v, Bs + (wn * 32 + nt * 8 + (lm >> 1) * 8 + lr) * L::kLdT +
+                         k + (lm & 1) * 4);
+        } else {  // rows along j: ldmatrix has no 32-bit transpose
+          const T* c = Bs + (k + (lane & 3)) * L::kLdJ + wn * 32 + nt * 8 +
+                       (lane >> 2);
+          v[0] = __float_as_uint(c[0]);
+          v[1] = __float_as_uint(c[4 * L::kLdJ]);
+          v[2] = __float_as_uint(c[8]);
+          v[3] = __float_as_uint(c[4 * L::kLdJ + 8]);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          split_tf32(__uint_as_float(v[q]), bhi[nt + q / 2][q % 2],
+                     blo[nt + q / 2][q % 2]);
+      }
+      // the small products first, each pass over all eight tiles, so a
+      // tile's three dependent products are eight apart
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], alo[mt], bhi[nt]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ahi[mt], blo[nt]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ahi[mt], bhi[nt]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kTcDepth; k += 16) {
+      unsigned a[2][4], b[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        ldsm_x4(a[mt], As + (wm * 32 + mt * 16 + (lm & 1) * 8 + lr) * L::kLdT +
+                           k + (lm >> 1) * 8);
+#pragma unroll
+      for (int nt = 0; nt < 4; nt += 2) {
+        unsigned v[4];
+        if constexpr (Policy::B_CONTIG_T)
+          ldsm_x4(v, Bs + (wn * 32 + nt * 8 + (lm >> 1) * 8 + lr) * L::kLdT +
+                         k + (lm & 1) * 8);
+        else
+          ldsm_x4_t(v, Bs + (k + (lm & 1) * 8 + lr) * L::kLdJ + wn * 32 +
+                           nt * 8 + (lm >> 1) * 8);
+        b[nt][0] = v[0];
+        b[nt][1] = v[1];
+        b[nt + 1][0] = v[2];
+        b[nt + 1][1] = v[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt]);
+    }
+  }
+}
+
+// Block (x, y, z): output tile (y, x) of the kept region [I_kept, J_kept],
+// contraction stages [z * steps_per_split, ...) -> f32 partials
+// partial[z][i][j] of that region.
+template <typename Policy, typename T>
+__global__ void __launch_bounds__(kTcThreads)
+pruned_gemm_tc_kernel(Args p, float* __restrict__ partial,
+                      int steps_per_split) {
+  static_assert(Policy::A_CONTIG_T, "the loaders take A contiguous along t");
+  using L = TcLayout<Policy, T>;
+  constexpr int V = L::kVec;
+  constexpr int kRowChunks = kTcDepth / V;          // copies per t-row
+  constexpr int kACopies = kTcRows * kRowChunks / kTcThreads;
+  constexpr int kBCopies = kTcCols * kRowChunks / kTcThreads;
+  constexpr int kColChunks = kTcCols / V;           // copies per j-row
+  constexpr int kColCopies = kTcDepth * kColChunks / kTcThreads;
+  constexpr int kColRows = kTcThreads / kColChunks;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  T* sm = reinterpret_cast<T*>(tc_smem);
+  const T* __restrict__ a = static_cast<const T*>(p.a);
+  const T* __restrict__ b = static_cast<const T*>(p.b);
+  const T zero = from_f<T>(0.f);
+  const int i0 = blockIdx.y * kTcRows;
+  const int j0 = blockIdx.x * kTcCols;
+  const int steps = (p.T + kTcDepth - 1) / kTcDepth;
+  const int k_lo = blockIdx.z * steps_per_split;
+  const int k_hi = min(steps, k_lo + steps_per_split);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  const int wm = warp / kTcWarpsN, wn = warp % kTcWarpsN;
+  const int tiles_x = (p.J_kept + kTcCols - 1) / kTcCols;
+  if ((int)blockIdx.x >= tiles_x) {
+    // a block past the kept tiles: zeros at rows [i0, i0 + kTcRows) of
+    // pruned-column chunk (x - tiles_x) * gridDim.z + z
+    if constexpr (Policy::SCATTER) {
+      const int jz = p.J_kept + ((blockIdx.x - tiles_x) * gridDim.z +
+                                 blockIdx.z) * kTcCols;
+      T* c = static_cast<T*>(p.c);
+      const int w = p.c_vec ? V : 1;   // a store stays inside one block
+      for (int e = tid; e < kTcRows * kTcCols / w; e += kTcThreads) {
+        const int i = i0 + e / (kTcCols / w), j = jz + e % (kTcCols / w) * w;
+        if (i >= p.I || j >= p.J) continue;
+        if (p.c_vec)
+          *reinterpret_cast<uint4*>(c + Policy::c_off(p, i, j)) = uint4{};
+        else
+          c[Policy::c_off(p, i, j)] = zero;
+      }
+    }
+    return;
+  }
+
+  // This thread's copies keep their rows (A; B contiguous along t) or
+  // their column (B contiguous along j) across stages: resolve the index
+  // map once. -1 marks a row or column outside the kept region.
+  const int tc = (tid % kRowChunks) * V;
+  long a_row[kACopies], b_row[kBCopies];
+#pragma unroll
+  for (int r = 0; r < kACopies; ++r) {
+    const int rr = (tid + r * kTcThreads) / kRowChunks;
+    a_row[r] = i0 + rr < p.I_kept ? Policy::a_off(p, i0 + rr, 0) : -1;
+  }
+#pragma unroll
+  for (int r = 0; r < kBCopies; ++r) {
+    const int rr = (tid + r * kTcThreads) / kRowChunks;
+    b_row[r] = (Policy::B_CONTIG_T && j0 + rr < p.J_kept)
+                   ? Policy::b_off(p, 0, j0 + rr) : -1;
+  }
+  const int jc = (tid % kColChunks) * V;
+  const int tr = tid / kColChunks;
+  const long b_col = (!Policy::B_CONTIG_T && j0 + jc < p.J_kept)
+                         ? Policy::b_off(p, 0, j0 + jc) : -1;
+
+  auto load_rows = [&](const T* src, const long* row, int copies, T* tile,
+                       int t0, bool vec) {
+#pragma unroll
+    for (int r = 0; r < copies; ++r) {
+      const int rr = (tid + r * kTcThreads) / kRowChunks;
+      T* dst = tile + rr * L::kLdT + tc;
+      const int t = t0 + tc;
+      if (vec) {
+        const bool ok = row[r] >= 0 && t < p.T;
+        cp_async16(dst, ok ? src + row[r] + t : src, ok);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          dst[e] = (row[r] >= 0 && t + e < p.T) ? src[row[r] + t + e] : zero;
+      }
+    }
+  };
+  auto load = [&](int kt, int slot) {
+    const int t0 = kt * kTcDepth;
+    T* As = sm + slot * L::kStage;
+    T* Bs = As + L::kA;
+    load_rows(a, a_row, kACopies, As, t0, p.a_vec);
+    if constexpr (Policy::B_CONTIG_T) {
+      load_rows(b, b_row, kBCopies, Bs, t0, p.b_vec);
+    } else {
+#pragma unroll
+      for (int r = 0; r < kColCopies; ++r) {
+        const int tt = tr + r * kColRows, t = t0 + tt;
+        T* dst = Bs + tt * L::kLdJ + jc;
+        if (p.b_vec) {
+          const bool ok = b_col >= 0 && t < p.T;
+          cp_async16(dst, ok ? b + (long)t * p.ldb + b_col : b, ok);
+        } else {
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            const int j = j0 + jc + e;
+            dst[e] = (j < p.J_kept && t < p.T) ? b[Policy::b_off(p, t, j)]
+                                                : zero;
+          }
+        }
+      }
+    }
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
+
+  // the ring: stage kt lives in slot (kt - k_lo) % kTcStages; one commit
+  // group per stage, empty past the split's end, so the wait counts hold
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (k_lo + s < k_hi) load(k_lo + s, s);
+    cp_async_commit();
+  }
+  for (int kt = k_lo; kt < k_hi; ++kt) {
+    cp_async_wait<kTcStages - 2>();
+    __syncthreads();  // stage kt landed; every warp is done with kt - 1
+    const int nk = kt + kTcStages - 1;
+    if (nk < k_hi) load(nk, (nk - k_lo) % kTcStages);
+    cp_async_commit();
+    const T* As = sm + ((kt - k_lo) % kTcStages) * L::kStage;
+    tc_stage<Policy, T>(acc, As, As + L::kA, wm, wn, lane);
+  }
+  cp_async_wait<0>();
+
+  float* out = partial + (long)blockIdx.z * p.I_kept * p.J_kept;
+  const bool pairs = (p.J_kept & 1) == 0;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + wm * 32 + mt * 16 + g + 8 * h;
+      if (i >= p.I_kept) continue;
+      float* row = out + (long)i * p.J_kept;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int j = j0 + wn * 32 + nt * 8 + 2 * tg;
+        const float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
+        if (pairs && j + 1 < p.J_kept) {
+          *reinterpret_cast<float2*>(row + j) = make_float2(v0, v1);
+        } else {
+          if (j < p.J_kept) row[j] = v0;
+          if (j + 1 < p.J_kept) row[j + 1] = v1;
+        }
+      }
+    }
+}
+
+// The second pass where the output is scattered (#8 without
+// compact_out): y at Policy::c_off(i, j) = the sum of the splits'
+// partials at (i, j) of the kept region, in a fixed order. The pruned
+// columns got their zeros from the first launch.
+template <typename Policy, typename T>
+__global__ void reduce_splits_scatter_kernel(
+    Args p, const float* __restrict__ partial, int splits) {
+  const long n = (long)p.I_kept * p.J_kept;
+  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float s = 0.f;
+  for (int z = 0; z < splits; ++z) s += partial[z * n + e];
+  static_cast<T*>(p.c)[Policy::c_off(p, (int)(e / p.J_kept),
+                                     (int)(e % p.J_kept))] = from_f<T>(s);
+}
+
+// Ring stages per contraction range for `splits` ranges.
+static inline int tc_steps_per_split(const Args& p, int splits) {
+  const int steps = (p.T + kTcDepth - 1) / kTcDepth;
+  return (steps + splits - 1) / splits;
+}
+
+// The two launches of a call (the split products, then the sum of the
+// splits); returns the count, 0 for shapes it refuses.
+template <typename Policy>
+int tc_config(const Args& p, int splits, int dtype, LaunchRec* r,
+              bool names) {
+  if (p.I <= 0 || p.J <= 0 || p.T <= 0 || p.blk < 1 || p.I_kept <= 0 ||
+      p.J_kept <= 0 || splits < 1)
+    return 0;
+  const int sps = tc_steps_per_split(p, splits);
+  const int used = ((p.T + kTcDepth - 1) / kTcDepth + sps - 1) / sps;
+  // with a scattered output, extra blocks along x write the zeros of the
+  // pruned columns [J_kept, J) in kTcCols-wide chunks, `used` per x
+  const int zero_chunks = Policy::SCATTER && !p.flag
+                              ? (p.J - p.J_kept + kTcCols - 1) / kTcCols : 0;
+  set_launch(&r[0], names,
+             dim3((p.J_kept + kTcCols - 1) / kTcCols +
+                      (zero_chunks + used - 1) / used,
+                  (p.I_kept + kTcRows - 1) / kTcRows, used),
+             kTcThreads, tc_smem_bytes<Policy>(dtype),
+             "pruned_gemm_tc_kernel<%s,%s>", Policy::kName, dt_name(dtype));
+  // one thread per element of the kept region (the whole output when it
+  // is compact)
+  const dim3 sum_grid((unsigned)(((long)p.I_kept * p.J_kept + 255) / 256));
+  if (Policy::SCATTER && !p.flag)
+    set_launch(&r[1], names, sum_grid, 256, 0,
+               "reduce_splits_scatter_kernel<%s,%s>", Policy::kName,
+               dt_name(dtype));
+  else
+    set_launch(&r[1], names, sum_grid, 256, 0, "reduce_splits_kernel<%s>",
+               dt_name(dtype));
+  return 2;
+}
+
+static inline bool aligned16(const void* q) {
+  return ((unsigned long long)q & 15ull) == 0;
+}
+
+template <typename Policy, typename T>
+int tc_launch_t(Args p, float* partial, int splits, cudaStream_t st) {
+  LaunchRec r[kMaxLaunches];
+  if (tc_config<Policy>(p, splits, dtype_of<T>(), r, false) != 2 ||
+      r[0].grid[1] > 65535 || r[0].grid[2] > 65535)
+    return (int)cudaErrorInvalidValue;
+  constexpr int V = TcLayout<Policy, T>::kVec;
+  p.a_vec = aligned16(p.a) && p.lda % V == 0 && p.T % V == 0;
+  p.b_vec = aligned16(p.b) && p.ldb % V == 0 &&
+            (Policy::B_CONTIG_T ? p.T % V == 0 : p.blk % V == 0);
+  p.c_vec = aligned16(p.c) && p.ldc % V == 0 && p.blk % V == 0;
+  const int used = r[0].grid[2];
+  cudaError_t e = allow_smem(pruned_gemm_tc_kernel<Policy, T>, r[0].smem);
+  if (e != cudaSuccess) return (int)e;
+  pruned_gemm_tc_kernel<Policy, T><<<grid_of(r[0]), r[0].threads, r[0].smem,
+                                     st>>>(p, partial,
+                                           tc_steps_per_split(p, splits));
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  if constexpr (Policy::SCATTER) {
+    if (!p.flag) {
+      reduce_splits_scatter_kernel<Policy, T>
+          <<<grid_of(r[1]), r[1].threads, 0, st>>>(p, partial, used);
+      return (int)cudaGetLastError();
+    }
+  }
+  reduce_splits_kernel<T><<<grid_of(r[1]), r[1].threads, 0, st>>>(
+      partial, static_cast<T*>(p.c), (long)p.I_kept * p.J_kept, used);
+  return (int)cudaGetLastError();
+}
+
+template <typename Policy>
+int tc_launch(const Args& p, float* partial, int splits, int dtype,
+              cudaStream_t st) {
+  if (dtype == DT_F32) return tc_launch_t<Policy, float>(p, partial, splits, st);
+  if (dtype == DT_BF16)
+    return tc_launch_t<Policy, __nv_bfloat16>(p, partial, splits, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// The CUDA-core core (#9, #11, #12)
+// ---------------------------------------------------------------------------
+
 // The one launch of a call; returns the count, 0 for shapes it refuses.
 int config(const Args& p, const char* policy, int dtype, LaunchRec* r,
            bool names) {
@@ -286,21 +768,23 @@ Args opdw_args(const void* x, const void* dyc, const int* order, void* dw,
 // *_launch_config takes its integer arguments and writes its launch.
 
 // #8. dy [M, N], w [nb*B, N], order [nb] -> dx [M, nb*B], or [M, kb*B]
-// with compact_out (then only order's keep prefix is read).
+// with compact_out (then only order's keep prefix is read); partial f32
+// scratch of at least splits * M * kb*B.
 extern "C" int repro_pruned_matmul_dx(
-    const void* dy, const void* w, const int* order, void* dx, int M, int N,
-    int nb, int kb, int block, int compact_out, int dtype, void* stream) {
-  return launch<DxPolicy>(
-      dx_args(dy, w, order, dx, M, N, nb, kb, block, compact_out), dtype,
-      static_cast<cudaStream_t>(stream));
+    const void* dy, const void* w, const int* order, float* partial,
+    void* dx, int M, int N, int nb, int kb, int block, int compact_out,
+    int splits, int dtype, void* stream) {
+  return tc_launch<DxPolicy>(
+      dx_args(dy, w, order, dx, M, N, nb, kb, block, compact_out), partial,
+      splits, dtype, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int repro_pruned_matmul_dx_launch_config(
-    int M, int N, int nb, int kb, int block, int compact_out, int dtype,
-    LaunchRec* r) {
-  return config(dx_args(nullptr, nullptr, nullptr, nullptr, M, N, nb, kb,
-                        block, compact_out),
-                DxPolicy::kName, dtype, r, true);
+    int M, int N, int nb, int kb, int block, int compact_out, int splits,
+    int dtype, LaunchRec* r) {
+  return tc_config<DxPolicy>(dx_args(nullptr, nullptr, nullptr, nullptr, M,
+                                     N, nb, kb, block, compact_out),
+                             splits, dtype, r, true);
 }
 
 // #9. x [M, nb*B] (or [M, kb*B] with x_compact), dy [M, N], order [nb]
@@ -321,19 +805,23 @@ extern "C" int repro_pruned_matmul_dw_launch_config(
                 DwPolicy::kName, dtype, r, true);
 }
 
-// #10. x [M, K], w [K, H], keep [kb] -> yc [M, kb*B].
+// #10. x [M, K], w [K, H], keep [kb] -> yc [M, kb*B]; partial f32
+// scratch of at least splits * M * kb*B.
 extern "C" int repro_outpruned_matmul(
-    const void* x, const void* w, const int* keep, void* yc, int M, int K,
-    int H, int kb, int block, int dtype, void* stream) {
-  return launch<OpPolicy>(op_args(x, w, keep, yc, M, K, H, kb, block), dtype,
-                          static_cast<cudaStream_t>(stream));
+    const void* x, const void* w, const int* keep, float* partial, void* yc,
+    int M, int K, int H, int kb, int block, int splits, int dtype,
+    void* stream) {
+  return tc_launch<OpPolicy>(op_args(x, w, keep, yc, M, K, H, kb, block),
+                             partial, splits, dtype,
+                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int repro_outpruned_matmul_launch_config(
-    int M, int K, int H, int kb, int block, int dtype, LaunchRec* r) {
-  return config(op_args(nullptr, nullptr, nullptr, nullptr, M, K, H, kb,
-                        block),
-                OpPolicy::kName, dtype, r, true);
+    int M, int K, int H, int kb, int block, int splits, int dtype,
+    LaunchRec* r) {
+  return tc_config<OpPolicy>(op_args(nullptr, nullptr, nullptr, nullptr, M,
+                                     K, H, kb, block),
+                             splits, dtype, r, true);
 }
 
 // #11. dyc [M, kb*B], w [K, H], keep [kb] -> dx [M, K].

@@ -146,11 +146,12 @@ def _num_sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _splits(limit: int, blocks_per_split_unit: int, device) -> int:
+def _splits(limit: int, blocks_per_split_unit: int, device,
+            per_sm: int = 4) -> int:
     """How many contraction ranges to spread across grid.z so that about
-    four blocks per SM are in flight (at most ``limit``)."""
-    target = 4 * _num_sms(device.index if device.index is not None
-                          else torch.cuda.current_device())
+    ``per_sm`` blocks per SM are in flight (at most ``limit``)."""
+    target = per_sm * _num_sms(device.index if device.index is not None
+                               else torch.cuda.current_device())
     return max(1, min(limit, -(-target // max(blocks_per_split_unit, 1))))
 
 
@@ -198,6 +199,24 @@ def inverse_order(keep_idx: torch.Tensor, nb: int) -> torch.Tensor:
     is_kept.index_fill_(0, keep.long(), True)
     pruned = torch.argsort(is_kept.to(torch.int32), stable=True)
     return torch.cat([keep, pruned[: nb - keep.shape[0]].to(torch.int32)])
+
+
+# the tensor-core core of #8 and #10 (pruned_grad.cu): output tile edge
+# and contraction depth of one ring stage
+TC_TILE, TC_DEPTH = 64, 32
+
+
+def _tc_partials(rows: int, cols: int, depth: int, device):
+    """The split count of the tensor-core core for a kept output of
+    ``rows x cols`` over a contraction of ``depth`` (at most one range per
+    stage; about two blocks per SM, which measured faster than four at
+    the train shapes: fewer partials to sum), and its f32 partial buffer
+    [splits, rows, cols]."""
+    splits = _splits(-(-depth // TC_DEPTH),
+                     -(-rows // TC_TILE) * -(-cols // TC_TILE), device,
+                     per_sm=2)
+    return splits, torch.empty((splits, rows, cols), dtype=torch.float32,
+                               device=device)
 
 
 def _check_2d(what: str, **tensors) -> None:
@@ -282,13 +301,14 @@ def pruned_matmul_dx(dy: torch.Tensor, w: torch.Tensor, order: torch.Tensor,
     dt, idx = _kernel_args(what, (dy, w), order)
     M, N = dy.shape
     y = _out(out, (M, (kb if compact_out else nb) * block), dy)
+    splits, partial = _tc_partials(M, kb * block, N, dy.device)
     err = _build.library().lib.repro_pruned_matmul_dx(
         dy.contiguous().data_ptr(), w.contiguous().data_ptr(),
-        idx.data_ptr(), y.data_ptr(), M, N, nb, kb, block, int(compact_out),
-        dt, _stream(dy.device))
+        idx.data_ptr(), partial.data_ptr(), y.data_ptr(), M, N, nb, kb,
+        block, int(compact_out), splits, dt, _stream(dy.device))
     _build.check(err, what)
     _launched(pruned_matmul_dx, ("repro_pruned_matmul_dx", M, N, nb, kb,
-                                 block, int(compact_out), dt))
+                                 block, int(compact_out), splits, dt))
     return y
 
 
@@ -370,12 +390,14 @@ def outpruned_matmul(x: torch.Tensor, w: torch.Tensor, keep_idx: torch.Tensor,
     dt, idx = _kernel_args(what, (x, w), keep_idx)
     (M, K), H = x.shape, w.shape[1]
     y = _out(out, (M, kb * block), x)
+    splits, partial = _tc_partials(M, kb * block, K, x.device)
     err = _build.library().lib.repro_outpruned_matmul(
         x.contiguous().data_ptr(), w.contiguous().data_ptr(), idx.data_ptr(),
-        y.data_ptr(), M, K, H, kb, block, dt, _stream(x.device))
+        partial.data_ptr(), y.data_ptr(), M, K, H, kb, block, splits, dt,
+        _stream(x.device))
     _build.check(err, what)
     _launched(outpruned_matmul, ("repro_outpruned_matmul", M, K, H, kb, block,
-                                 dt))
+                                 splits, dt))
     return y
 
 

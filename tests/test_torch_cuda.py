@@ -394,3 +394,136 @@ def test_cuda_analysis_check_and_mutate(cuda_device, capsys):
     """The gate on the card: the whole matrix clean, every mutant firing."""
     from repro_torch.analysis.__main__ import main
     assert main(["--check", "--mutate"]) == 0, capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# #10 and #8 on the tensor-core core (split contraction, cp.async ring,
+# mma.sync): ragged edges, block 8 and 128, sorted and unsorted keep
+# lists, operands that take the element-wise loads, determinism
+# ---------------------------------------------------------------------------
+
+# name: (M, contraction, nb, kb, block, sorted keep, base offset in
+# elements). The contraction is K for #10 and N for #8.
+_TC_CASES = {
+    "train_ffn_b8": (520, 2048, 256, 30, 8, True, 0),
+    "ragged_b128_unsorted": (70, 96, 6, 3, 128, False, 0),
+    "ragged_b8_unsorted": (130, 200, 24, 7, 8, False, 0),
+    # a contraction of 97: rows are not 16-byte multiples
+    "odd_contraction": (65, 97, 10, 4, 8, False, 0),
+    # block 6: #10's gathered columns are not whole 16-byte copies
+    "block6": (40, 64, 12, 5, 6, False, 0),
+    # operands one element past a 16-byte boundary
+    "unaligned_base": (33, 128, 8, 3, 8, False, 1),
+    # one kept block, a long contraction: the splits outnumber the blocks
+    "splits_exceed_kept": (16, 2048, 64, 1, 8, True, 0),
+}
+
+
+def _tc_operand(g, shape, dtype, device, offset, scale=1.0):
+    """A contiguous operand whose data starts ``offset`` elements into
+    its storage."""
+    n = shape[0] * shape[1]
+    flat = torch.from_numpy(
+        (g.standard_normal(n + offset) * scale).astype("float32"))
+    return flat.to(device=device, dtype=dtype)[offset:].view(shape)
+
+
+def _tc_keep(case, device):
+    import numpy as np
+    _, _, nb, kb, _, is_sorted, _ = _TC_CASES[case]
+    keep = np.random.default_rng(sum(map(ord, case))).permutation(nb)[:kb]
+    if is_sorted:
+        keep = np.sort(keep)
+    return torch.tensor(keep, dtype=torch.int32, device=device)
+
+
+def _tc_check(run, ref, shape, dtype, device, wrapper):
+    """Two calls into NaN-filled outputs: each writes every element within
+    the tolerance, the two are bit-identical, and each moves the
+    wrapper's count by exactly one."""
+    got = []
+    for _ in range(2):
+        before = wrapper.launches
+        out = _nan(shape, dtype, device)
+        y = run(out)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        assert y.data_ptr() == out.data_ptr()
+        assert bool(torch.isfinite(y.float()).all())
+        _close(y, ref, dtype)
+        got.append(y.clone())
+    assert torch.equal(got[0], got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(_TC_CASES))
+def test_cuda_tc_outpruned_matmul_matches_plain(cuda_device, dtype, case):
+    import numpy as np
+    M, K, nb, kb, block, _, off = _TC_CASES[case]
+    g = np.random.default_rng(len(case))
+    x = _tc_operand(g, (M, K), dtype, cuda_device, off)
+    w = _tc_operand(g, (K, nb * block), dtype, cuda_device, off, 0.05)
+    keep = _tc_keep(case, cuda_device)
+    _tc_check(lambda out: tops.outpruned_matmul(x, w, keep, block=block,
+                                                out=out),
+              tops.outpruned_matmul_plain(x, w, keep, block),
+              (M, kb * block), dtype, cuda_device, tops.outpruned_matmul)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("compact_out", [False, True])
+@pytest.mark.parametrize("case", sorted(_TC_CASES))
+def test_cuda_tc_pruned_matmul_dx_matches_plain(cuda_device, dtype,
+                                                compact_out, case):
+    import numpy as np
+    M, N, nb, kb, block, _, off = _TC_CASES[case]
+    g = np.random.default_rng(len(case) + 1)
+    dy = _tc_operand(g, (M, N), dtype, cuda_device, off)
+    w = _tc_operand(g, (nb * block, N), dtype, cuda_device, off, 0.05)
+    keep = _tc_keep(case, cuda_device)
+    idx = keep if compact_out else tops.inverse_order(keep, nb)
+    _tc_check(lambda out: tops.pruned_matmul_dx(
+        dy, w, idx, kb=kb, block=block, compact_out=compact_out, out=out),
+        tops.pruned_matmul_dx_plain(dy, w, idx, kb, block, compact_out),
+        (M, (kb if compact_out else nb) * block), dtype, cuda_device,
+        tops.pruned_matmul_dx)
+
+
+@pytest.mark.cuda
+def test_cuda_tc_launch_configs_split_and_sum(cuda_device):
+    """#10 and #8 report both launches, the split products on the
+    tensor-core core and the ordered sum (the scatter pass where #8's
+    output is not compact); #9, #11, #12 keep the CUDA-core core."""
+    from repro_torch.kernels import build
+
+    launches = []
+    prev = tops.set_launch_hook(lambda name, ls: launches.append((name, ls)))
+    try:
+        keep = torch.tensor([5, 1, 3], dtype=torch.int32, device=cuda_device)
+        order = tops.inverse_order(keep, 8)
+        x, w = torch.randn(520, 256, device=cuda_device), \
+            torch.randn(256, 64, device=cuda_device)
+        tops.outpruned_matmul(x, w, keep, block=8)
+        tops.pruned_matmul_dx(x, torch.randn(64, 256, device=cuda_device),
+                              order, kb=3, block=8)
+        tops.outpruned_matmul_dx(torch.randn(520, 24, device=cuda_device),
+                                 w, keep, block=8)
+    finally:
+        tops.set_launch_hook(prev)
+    fns = {name: [ln.fn for ln in ls] for name, ls in launches}
+    assert fns == {
+        "outpruned_matmul": ["pruned_gemm_tc_kernel<OpPolicy,float>",
+                             "reduce_splits_kernel<float>"],
+        "pruned_matmul_dx": ["pruned_gemm_tc_kernel<DxPolicy,float>",
+                             "reduce_splits_scatter_kernel<DxPolicy,float>"],
+        "outpruned_matmul_dx": ["pruned_gemm_kernel<OpDxPolicy,float>"]}
+    (split, _), = [ls for name, ls in launches if name == "outpruned_matmul"]
+    assert split.grid[:2] == (1, 9) and split.grid[2] > 1
+    assert split.smem > 48 * 1024
+    res = build.launch_config("repro_pruned_matmul_dx", 520, 256, 8, 3, 8, 1,
+                              4, 1)
+    assert [ln.fn for ln in res] == [
+        "pruned_gemm_tc_kernel<DxPolicy,__nv_bfloat16>",
+        "reduce_splits_kernel<__nv_bfloat16>"]
