@@ -62,10 +62,10 @@ Phases, each printing one line of its own; any failure exits non-zero:
               tolerances, every output NaN-filled before the launch so a
               skipped element shows, and a second call that must give the
               same bits; block 128 at a small shape with the compact modes
-              and an unsorted keep list; each timed like phase 2 (#8 and
-              #10, on the tensor cores, also beside a 3xTF32 bound at
-              495/3 TFLOP/s), plus the forward kernels (#2, #3) at the
-              train shapes.
+              and an unsorted keep list; each timed like phase 2 (#8, #9,
+              #10 and #12, on the tensor cores, also beside a 3xTF32
+              bound at 495/3 TFLOP/s), plus the forward kernels (#2, #3)
+              at the train shapes.
 7. train-reference — one controlled step (rank 0 resized and a migration
               source) of a two-layer, full-width ViT-1B in f32 at tp 4:
               loss and every gradient, kernel path against plain path.
@@ -75,7 +75,8 @@ Phases, each printing one line of its own; any failure exits non-zero:
               after, and each kernel of the path must be > 0; every loss
               finite; at least one resized and one migrating step.
 9. train-profile — three steps of the same model under the run's plan,
-              under torch.profiler: wall vs device time, by family.
+              under torch.profiler: wall vs device time, by family, and
+              the backward family's kernels by name.
 
 Then one JSON line of per-kernel numbers (launches of each kernel from
 the run of its path: #1-#3 phase 4, #4 paged-serve, #5 / #6 the two
@@ -96,9 +97,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,
-              # f32 products on the tensor cores as 3xTF32 (#8, #10)
+              # f32 products on the tensor cores as 3xTF32 (#8-#10, #12)
               "3xtf32": 495e12 / 3}
-TENSOR_CORE_F32 = ("pruned_matmul_dx", "outpruned_matmul")
+TENSOR_CORE_F32 = ("pruned_matmul_dx", "pruned_matmul_dw", "outpruned_matmul",
+                   "outpruned_matmul_dw")
 F32_TOL, BF16_TOL = 1e-4, 2e-2
 REPLACES = {
     "block_pruned_matmul": "src/repro/kernels/pruned_matmul.py:81",
@@ -1576,6 +1578,11 @@ def main():
     for fam, (calls, ms) in sorted(tfams.items(), key=lambda kv: -kv[1][1]):
         say("train-profile", f"  {fam}: {ms / n_prof:.2f} ms/step, "
             f"{calls / n_prof:.0f} kernels/step")
+    for name, calls, ms in trows:
+        if train_family(name) in ("backward family #8-#12",
+                                  "split reductions"):
+            say("train-profile", f"  kernel: {ms / n_prof:.2f} ms/step, "
+                f"{calls / n_prof:.0f}/step  {name[:110]}")
     for name, calls, ms in trows[:10]:
         say("train-profile", f"  top: {ms / n_prof:.2f} ms/step, "
             f"{calls / n_prof:.0f}/step  {name[:90]}")

@@ -54,14 +54,14 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _P),
     "repro_pruned_matmul_dx": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _P),
-    "repro_pruned_matmul_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _P),
+    "repro_pruned_matmul_dw": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _P),
     "repro_outpruned_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _P),
     "repro_outpruned_matmul_dx": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _P),
-    "repro_outpruned_matmul_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                  _P),
+    "repro_outpruned_matmul_dw": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _I, _P),
     "repro_unfused_gqa_decode_attn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _I, _I, _F, _I, _I, _P),
 }
@@ -75,10 +75,12 @@ CONFIG_SIGNATURES = {
     "repro_pruned_ffn_hidden": 6,         # M, K, kb, block, splits, dtype
     "repro_pruned_matmul_dx": 8,          # M, N, nb, kb, block, compact,
                                           # splits, dtype
-    "repro_pruned_matmul_dw": 7,          # M, N, nb, kb, block, compact, dtype
+    "repro_pruned_matmul_dw": 8,          # M, N, nb, kb, block, compact,
+                                          # splits, dtype
     "repro_outpruned_matmul": 7,          # M, K, H, kb, block, splits, dtype
     "repro_outpruned_matmul_dx": 6,       # M, K, H, kb, block, dtype
-    "repro_outpruned_matmul_dw": 6,       # M, K, nb, kb, block, dtype
+    "repro_outpruned_matmul_dw": 7,       # M, K, nb, kb, block, splits,
+                                          # dtype
     "repro_unfused_gqa_decode_attn": 7,   # B, Hkv, G, S, D, Dv, dtype
 }
 MAX_LAUNCHES = 4                          # kMaxLaunches in common.cuh

@@ -24,49 +24,66 @@
 // its first kb entries pair compact slot k with block idx[k] in the
 // caller's order, sorted or not.
 //
-// What bounds it on the H100: on the training path (ViT-1B at tp = 4,
-// M = 520 rows, d = 2048) every product does 2*M flops per weight
-// element and per output element, about 520 flops per byte read once:
-// above the ridge of every rate of the card, so the products are bound
-// by operations. Two cores run them.
+// What bounds it on the H100, on the training path (ViT-1B at tp = 4,
+// M = 520 rows, d = 2048, f32 products as 3xTF32 at 495/3 TFLOP/s):
+//   - #8 and #10 do 2*M flops per weight element and per output element,
+//     about 520 flops per byte read once: bound by operations, except #8
+//     with few kept blocks (`wq`: 32 of 256), where writing its mostly-zero
+//     output makes it bound by bytes;
+//   - #9 and #12 contract over only M = 520 rows, and their outputs are
+//     full weight gradients of which the kept blocks are a small part
+//     (#9 `wq`: 256 of 2048 rows; the FFN's dW_down and dW_up: 240 of 2048
+//     rows or columns), so they are bound by bytes, and most of the bytes
+//     are the zeros of the pruned rows or columns (3.7 MB of `wq`'s 5.8,
+//     14.8 of the FFN's 21.5).
+// Two cores run them.
 //
-// #10 and #8 run `pruned_gemm_tc_kernel`, designed for Hopper:
+// #8, #9, #10 and #12 run `pruned_gemm_tc_kernel`, designed for Hopper:
 //   - tensor cores through mma.sync: m16n8k16 bf16 with f32 accumulation
 //     for bf16 operands; for f32 operands m16n8k8 TF32 in the 3xTF32 form
 //     (each operand split into its top 10 mantissa bits and the rest,
 //     both read as TF32, summed as lo*hi + hi*lo + hi*hi), which keeps
 //     about f32's accuracy at a third of the TF32 rate (495/3 TFLOP/s);
-//     fragments through ldmatrix;
 //   - 64 x 64 output tiles per block of 4 warps (32 x 32 each), operand
 //     tiles of depth 32 in a 3-stage cp.async ring in dynamic shared
 //     memory, 16 bytes a copy, out-of-range copies zero-filled (src-size
-//     0). The column gather at block 8 is whole 16-byte copies (8 f32 =
-//     two copies, 8 bf16 = one). An operand whose rows, stride or block
-//     are not 16-byte multiples takes a predicated element-wise path
-//     inside the same kernel;
-//   - the contraction split across grid.z so that the 36 output tiles of
-//     the train shapes fill 132 SMs (the wrapper picks the count from the
-//     shapes and the SM count). Each split writes f32 partials of the
-//     kept region only; a second launch sums them in a fixed order (no
-//     float atomics, so two runs are bit-identical) and writes the
-//     output: `reduce_splits_kernel` where it is contiguous (#10, #8
-//     compact_out), `reduce_splits_scatter_kernel` through #8's map
-//     otherwise. There, extra blocks of the first launch write the zeros
-//     of the pruned columns while the product runs.
-//   It is bound by operations at 495/3 (f32) or 989 (bf16) TFLOP/s,
-//   except #8 with few kept blocks (`wq`: 32 of 256), where writing its
-//   mostly-zero output makes it bound by bytes.
-// #9, #11 and #12 still run `pruned_gemm_kernel`: 64 x 64 tiles on CUDA
-// cores (4 x 4 per thread, f32 accumulation), depth-16 tiles staged with
-// plain loads, one launch, no split; bound by operations at 67 TFLOP/s. #9 and #12 read A along its rows
-// (A is x transposed) and #11 gathers its contraction through the map,
-// which the tensor-core core's loaders do not take; they keep the old
-// design, so their times go on measuring it, until each is redesigned.
+//     0). An operand contiguous along the contraction (#8's and #10's A,
+//     #8's B) is staged [rows][32 + pad] and read by ldmatrix; one stored
+//     along i or j (x transposed, #9's and #12's A; #9's, #10's and #12's
+//     B) is staged [32][64 + 8], copied along i or j with the column of
+//     each copy resolved once per block through the block map, and read
+//     by scalar shared loads in f32 (ldmatrix has no 32-bit transpose; a
+//     pitch of 72 puts a fragment's 32 lanes on 32 banks) or by
+//     ldmatrix.trans in bf16. At block 8 a copy never crosses a block
+//     (8 f32 = two copies, 8 bf16 = one). An operand whose base, stride or
+//     block is not whole 16-byte copies takes a predicated element-wise
+//     path inside the same kernel;
+//   - the contraction split across grid.z so that the kept tiles fill 132
+//     SMs (the wrapper picks the count from the shapes and the SM count:
+//     about two blocks per SM for #8 and #10, three for #9 and #12, whose
+//     17 stages give 9 ranges at `wq` and `wo` and 4 at the FFN). Each
+//     split writes f32 partials of the kept region only; a second launch
+//     sums them in a fixed order (no float atomics, so two runs are
+//     bit-identical) and writes the output: `reduce_splits_kernel` where
+//     it is contiguous (#10, #8 compact_out), `reduce_splits_scatter_kernel`
+//     through the policy's map otherwise (#8, #9, #12);
+//   - the zeros: extra blocks of the first launch write the pruned columns
+//     (#8, #12; along x) or rows (#9; along y), 64 x 64 a block in 16-byte
+//     stores, while the product runs.
+//   Measured against the alternatives (PERF.md): one range and no second
+//   launch loses 1.4-2x to the split; the zeros written by the product's
+//   own blocks, and the splits of a tile summed in a thread-block cluster
+//   through distributed shared memory, both measured slower.
+// #11 still runs `pruned_gemm_kernel`: 64 x 64 tiles on CUDA cores (4 x 4
+// per thread, f32 accumulation), depth-16 tiles staged with plain loads,
+// one launch, no split; bound by operations at 67 TFLOP/s. It gathers its
+// contraction through the map, which the tensor-core core's loaders do not
+// take.
 //
 // Zeros are written by the kernels: the old core's tiles that lie wholly
 // in the pruned region skip the contraction and store zeros, and the new
-// core's extra blocks write #8's pruned columns. No output element is left
-// unwritten, so an output allocated with torch.empty is safe.
+// core's extra blocks write the pruned rows or columns. No output element
+// is left unwritten, so an output allocated with torch.empty is safe.
 #include <type_traits>
 
 #include "common.cuh"
@@ -95,16 +112,28 @@ __device__ __forceinline__ long mapped(const Args& p, int c) {
   return (long)p.idx[c / p.blk] * p.blk + c % p.blk;
 }
 
+// Which side of a scattered output holds the pruned region's zeros: none
+// (a compact output), the rows [I_kept, I) (#9) or the columns
+// [J_kept, J) (#8 unless compact_out, #12).
+enum ZeroSide { kZeroNone, kZeroRows, kZeroCols };
+
 // Each policy: A_CONTIG_T (A's stored layout is contiguous along t, else
 // along i), B_CONTIG_T (B contiguous along t, else along j), the element
-// offsets a_off / b_off, and the output offset c_off.
+// offsets a_off / b_off, and the output offset c_off. The tensor-core
+// core also reads: A_MAPPED / B_MAPPED (an operand stored along i or j
+// reads its columns through the block map, so a 16-byte copy needs a
+// block of whole copies), ZERO and scattered(p) (whether this call's
+// output is scattered, with its zeros written by the first launch).
 
 // #8: A = dy [I=M, T=N]; B(t, j) = w[row(j), t]; out [M, nslots*B].
 struct DxPolicy {
   static constexpr const char* kName = "DxPolicy";
   static constexpr bool A_CONTIG_T = true;
   static constexpr bool B_CONTIG_T = true;
-  static constexpr bool SCATTER = true;   // unless compact_out
+  static constexpr bool A_MAPPED = false;
+  static constexpr bool B_MAPPED = true;
+  static constexpr ZeroSide ZERO = kZeroCols;   // unless compact_out
+  __host__ __device__ static bool scattered(const Args& p) { return !p.flag; }
   __device__ static long a_off(const Args& p, int i, int t) {
     return (long)i * p.lda + t;
   }
@@ -121,6 +150,10 @@ struct DwPolicy {
   static constexpr const char* kName = "DwPolicy";
   static constexpr bool A_CONTIG_T = false;
   static constexpr bool B_CONTIG_T = false;
+  static constexpr bool A_MAPPED = true;    // unless x_compact
+  static constexpr bool B_MAPPED = false;
+  static constexpr ZeroSide ZERO = kZeroRows;
+  __host__ __device__ static bool scattered(const Args&) { return true; }
   __device__ static long a_off(const Args& p, int i, int t) {
     return (long)t * p.lda + (p.flag ? (long)i : mapped(p, i));
   }
@@ -137,7 +170,10 @@ struct OpPolicy {
   static constexpr const char* kName = "OpPolicy";
   static constexpr bool A_CONTIG_T = true;
   static constexpr bool B_CONTIG_T = false;
-  static constexpr bool SCATTER = false;
+  static constexpr bool A_MAPPED = false;
+  static constexpr bool B_MAPPED = true;
+  static constexpr ZeroSide ZERO = kZeroNone;
+  __host__ __device__ static bool scattered(const Args&) { return false; }
   __device__ static long a_off(const Args& p, int i, int t) {
     return (long)i * p.lda + t;
   }
@@ -168,6 +204,10 @@ struct OpDwPolicy {
   static constexpr const char* kName = "OpDwPolicy";
   static constexpr bool A_CONTIG_T = false;
   static constexpr bool B_CONTIG_T = false;
+  static constexpr bool A_MAPPED = false;
+  static constexpr bool B_MAPPED = false;
+  static constexpr ZeroSide ZERO = kZeroCols;
+  __host__ __device__ static bool scattered(const Args&) { return true; }
   __device__ static long a_off(const Args& p, int i, int t) {
     return (long)t * p.lda + i;
   }
@@ -249,7 +289,8 @@ pruned_gemm_kernel(Args p) {
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core core (#8, #10): split contraction, cp.async ring, mma.sync
+// The tensor-core core (#8, #9, #10, #12): split contraction, cp.async
+// ring, mma.sync
 // ---------------------------------------------------------------------------
 
 constexpr int kTcRows = 64;      // output tile: rows
@@ -260,16 +301,19 @@ constexpr int kTcWarpsN = kTcCols / 32;  // one warp per 32 x 32 of the tile
 constexpr int kTcThreads = kTcRows / 32 * kTcWarpsN * 32;
 
 // Shared-memory layout of one ring stage for operands of type T. A is
-// [kTcRows][kLdT] (contiguous along t); B is [kTcCols][kLdT] when it is
-// contiguous along t (#8), else [kTcDepth][kLdJ] (#10). The pads (16 bytes
-// per t-row, 8 elements per j-row) keep the fragment loads of a warp on
-// 32 distinct banks and every row 16-byte aligned.
+// [kTcRows][kLdT] when it is contiguous along t (#8, #10), else
+// [kTcDepth][kLdI] (#9, #12); B is [kTcCols][kLdT] when it is contiguous
+// along t (#8), else [kTcDepth][kLdJ] (#9, #10, #12). The pads (16 bytes
+// per t-row, 8 elements per i- or j-row) keep the fragment loads of a warp
+// on 32 distinct banks and every row 16-byte aligned.
 template <typename Policy, typename T>
 struct TcLayout {
   static constexpr int kVec = 16 / (int)sizeof(T);    // elements per copy
   static constexpr int kLdT = kTcDepth + kVec;
+  static constexpr int kLdI = kTcRows + 8;
   static constexpr int kLdJ = kTcCols + 8;
-  static constexpr int kA = kTcRows * kLdT;
+  static constexpr int kA = Policy::A_CONTIG_T ? kTcRows * kLdT
+                                               : kTcDepth * kLdI;
   static constexpr int kB = Policy::B_CONTIG_T ? kTcCols * kLdT
                                                : kTcDepth * kLdJ;
   static constexpr int kStage = kA + kB;
@@ -350,7 +394,11 @@ __device__ __forceinline__ void ldsm_x4_t(unsigned* r, const void* row) {
 // contraction index). Lane l addresses row l % 8 of matrix l / 8 of each
 // ldmatrix.x4: for A, matrix m covers rows + 8 (m & 1) and the second
 // half of the k-step when m >= 2; for B, the n8 tile + (m >> 1) and the
-// second half of the k-step when m is odd.
+// second half of the k-step when m is odd. An operand stored along i or j
+// (rows of the tile are t) is read by scalar loads in f32, where
+// ldmatrix has no 32-bit transpose: with a row pitch of 72 the 32 lanes
+// (t = k + tg, column g) fall on banks 8 tg + g, all distinct; in bf16 by
+// ldmatrix.trans.
 template <typename Policy, typename T>
 __device__ __forceinline__ void tc_stage(float (&acc)[2][4][4], const T* As,
                                          const T* Bs, int wm, int wn,
@@ -364,8 +412,17 @@ __device__ __forceinline__ void tc_stage(float (&acc)[2][4][4], const T* As,
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
         unsigned v[4];
-        ldsm_x4(v, As + (wm * 32 + mt * 16 + (lm & 1) * 8 + lr) * L::kLdT +
-                       k + (lm >> 1) * 4);
+        if constexpr (Policy::A_CONTIG_T) {
+          ldsm_x4(v, As + (wm * 32 + mt * 16 + (lm & 1) * 8 + lr) * L::kLdT +
+                         k + (lm >> 1) * 4);
+        } else {  // rows along i: a0..a3 at (g, tg), (g+8, tg), +4 in t
+          const T* c = As + (k + (lane & 3)) * L::kLdI + wm * 32 + mt * 16 +
+                       (lane >> 2);
+          v[0] = __float_as_uint(c[0]);
+          v[1] = __float_as_uint(c[8]);
+          v[2] = __float_as_uint(c[4 * L::kLdI]);
+          v[3] = __float_as_uint(c[4 * L::kLdI + 8]);
+        }
 #pragma unroll
         for (int q = 0; q < 4; ++q)
           split_tf32(__uint_as_float(v[q]), ahi[mt][q], alo[mt][q]);
@@ -409,9 +466,14 @@ __device__ __forceinline__ void tc_stage(float (&acc)[2][4][4], const T* As,
     for (int k = 0; k < kTcDepth; k += 16) {
       unsigned a[2][4], b[4][2];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldsm_x4(a[mt], As + (wm * 32 + mt * 16 + (lm & 1) * 8 + lr) * L::kLdT +
-                           k + (lm >> 1) * 8);
+      for (int mt = 0; mt < 2; ++mt) {
+        if constexpr (Policy::A_CONTIG_T)
+          ldsm_x4(a[mt], As + (wm * 32 + mt * 16 + (lm & 1) * 8 + lr) *
+                                  L::kLdT + k + (lm >> 1) * 8);
+        else  // matrix m: rows + 8 (m & 1), k + 8 (m >> 1), transposed
+          ldsm_x4_t(a[mt], As + (k + (lm >> 1) * 8 + lr) * L::kLdI + wm * 32 +
+                               mt * 16 + (lm & 1) * 8);
+      }
 #pragma unroll
       for (int nt = 0; nt < 4; nt += 2) {
         unsigned v[4];
@@ -436,18 +498,21 @@ __device__ __forceinline__ void tc_stage(float (&acc)[2][4][4], const T* As,
 
 // Block (x, y, z): output tile (y, x) of the kept region [I_kept, J_kept],
 // contraction stages [z * steps_per_split, ...) -> f32 partials
-// partial[z][i][j] of that region.
+// partial[z][i][j] of that region, summed by a second launch. With a
+// scattered output, blocks past the kept tiles (along x for zero columns,
+// along y for zero rows) write the pruned region's zeros while the
+// product runs.
 template <typename Policy, typename T>
 __global__ void __launch_bounds__(kTcThreads)
 pruned_gemm_tc_kernel(Args p, float* __restrict__ partial,
                       int steps_per_split) {
-  static_assert(Policy::A_CONTIG_T, "the loaders take A contiguous along t");
+  static_assert(kTcRows == kTcCols, "A and B share the column-copy layout");
   using L = TcLayout<Policy, T>;
   constexpr int V = L::kVec;
   constexpr int kRowChunks = kTcDepth / V;          // copies per t-row
   constexpr int kACopies = kTcRows * kRowChunks / kTcThreads;
   constexpr int kBCopies = kTcCols * kRowChunks / kTcThreads;
-  constexpr int kColChunks = kTcCols / V;           // copies per j-row
+  constexpr int kColChunks = kTcCols / V;           // copies per i- or j-row
   constexpr int kColCopies = kTcDepth * kColChunks / kTcThreads;
   constexpr int kColRows = kTcThreads / kColChunks;
   extern __shared__ __align__(16) unsigned char tc_smem[];
@@ -464,16 +529,23 @@ pruned_gemm_tc_kernel(Args p, float* __restrict__ partial,
   const int g = lane >> 2, tg = lane & 3;
   const int wm = warp / kTcWarpsN, wn = warp % kTcWarpsN;
   const int tiles_x = (p.J_kept + kTcCols - 1) / kTcCols;
-  if ((int)blockIdx.x >= tiles_x) {
-    // a block past the kept tiles: zeros at rows [i0, i0 + kTcRows) of
-    // pruned-column chunk (x - tiles_x) * gridDim.z + z
-    if constexpr (Policy::SCATTER) {
-      const int jz = p.J_kept + ((blockIdx.x - tiles_x) * gridDim.z +
-                                 blockIdx.z) * kTcCols;
+  const int tiles_y = (p.I_kept + kTcRows - 1) / kTcRows;
+  if ((int)blockIdx.x >= tiles_x || (int)blockIdx.y >= tiles_y) {
+    // chunk (x - tiles_x) * gridDim.z + z of the pruned columns, at rows
+    // [i0, i0 + kTcRows), or (y - tiles_y) * gridDim.z + z of the pruned
+    // rows, at columns [j0, j0 + kTcCols)
+    if constexpr (Policy::ZERO != kZeroNone) {
+      const int chunk = (Policy::ZERO == kZeroCols ? blockIdx.x - tiles_x
+                                                   : blockIdx.y - tiles_y) *
+                            gridDim.z + blockIdx.z;
+      const int zi = Policy::ZERO == kZeroCols ? i0
+                                                : p.I_kept + chunk * kTcRows;
+      const int zj = Policy::ZERO == kZeroCols ? p.J_kept + chunk * kTcCols
+                                                : j0;
       T* c = static_cast<T*>(p.c);
       const int w = p.c_vec ? V : 1;   // a store stays inside one block
       for (int e = tid; e < kTcRows * kTcCols / w; e += kTcThreads) {
-        const int i = i0 + e / (kTcCols / w), j = jz + e % (kTcCols / w) * w;
+        const int i = zi + e / (kTcCols / w), j = zj + e % (kTcCols / w) * w;
         if (i >= p.I || j >= p.J) continue;
         if (p.c_vec)
           *reinterpret_cast<uint4*>(c + Policy::c_off(p, i, j)) = uint4{};
@@ -484,15 +556,16 @@ pruned_gemm_tc_kernel(Args p, float* __restrict__ partial,
     return;
   }
 
-  // This thread's copies keep their rows (A; B contiguous along t) or
-  // their column (B contiguous along j) across stages: resolve the index
-  // map once. -1 marks a row or column outside the kept region.
+  // This thread's copies keep their rows (an operand contiguous along t)
+  // or their column (one stored along i or j) across stages: resolve the
+  // index map once. -1 marks a row or column outside the kept region.
   const int tc = (tid % kRowChunks) * V;
   long a_row[kACopies], b_row[kBCopies];
 #pragma unroll
   for (int r = 0; r < kACopies; ++r) {
     const int rr = (tid + r * kTcThreads) / kRowChunks;
-    a_row[r] = i0 + rr < p.I_kept ? Policy::a_off(p, i0 + rr, 0) : -1;
+    a_row[r] = (Policy::A_CONTIG_T && i0 + rr < p.I_kept)
+                   ? Policy::a_off(p, i0 + rr, 0) : -1;
   }
 #pragma unroll
   for (int r = 0; r < kBCopies; ++r) {
@@ -500,10 +573,12 @@ pruned_gemm_tc_kernel(Args p, float* __restrict__ partial,
     b_row[r] = (Policy::B_CONTIG_T && j0 + rr < p.J_kept)
                    ? Policy::b_off(p, 0, j0 + rr) : -1;
   }
-  const int jc = (tid % kColChunks) * V;
+  const int cc = (tid % kColChunks) * V;
   const int tr = tid / kColChunks;
-  const long b_col = (!Policy::B_CONTIG_T && j0 + jc < p.J_kept)
-                         ? Policy::b_off(p, 0, j0 + jc) : -1;
+  const long a_col = (!Policy::A_CONTIG_T && i0 + cc < p.I_kept)
+                         ? Policy::a_off(p, i0 + cc, 0) : -1;
+  const long b_col = (!Policy::B_CONTIG_T && j0 + cc < p.J_kept)
+                         ? Policy::b_off(p, 0, j0 + cc) : -1;
 
   auto load_rows = [&](const T* src, const long* row, int copies, T* tile,
                        int t0, bool vec) {
@@ -522,31 +597,40 @@ pruned_gemm_tc_kernel(Args p, float* __restrict__ partial,
       }
     }
   };
+  // rows t of a [kTcDepth][ld] tile, columns [c0 + cc, + V) of this
+  // thread; `off(t, c)` is the element offset of the element-wise path
+  auto load_cols = [&](const T* src, long col, int ld_src, int ld, int c0,
+                       int c_end, T* tile, int t0, bool vec, auto off) {
+#pragma unroll
+    for (int r = 0; r < kColCopies; ++r) {
+      const int tt = tr + r * kColRows, t = t0 + tt;
+      T* dst = tile + tt * ld + cc;
+      if (vec) {
+        const bool ok = col >= 0 && t < p.T;
+        cp_async16(dst, ok ? src + (long)t * ld_src + col : src, ok);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const int c = c0 + cc + e;
+          dst[e] = (c < c_end && t < p.T) ? src[off(t, c)] : zero;
+        }
+      }
+    }
+  };
   auto load = [&](int kt, int slot) {
     const int t0 = kt * kTcDepth;
     T* As = sm + slot * L::kStage;
     T* Bs = As + L::kA;
-    load_rows(a, a_row, kACopies, As, t0, p.a_vec);
-    if constexpr (Policy::B_CONTIG_T) {
+    if constexpr (Policy::A_CONTIG_T)
+      load_rows(a, a_row, kACopies, As, t0, p.a_vec);
+    else
+      load_cols(a, a_col, p.lda, L::kLdI, i0, p.I_kept, As, t0, p.a_vec,
+                [&](int t, int i) { return Policy::a_off(p, i, t); });
+    if constexpr (Policy::B_CONTIG_T)
       load_rows(b, b_row, kBCopies, Bs, t0, p.b_vec);
-    } else {
-#pragma unroll
-      for (int r = 0; r < kColCopies; ++r) {
-        const int tt = tr + r * kColRows, t = t0 + tt;
-        T* dst = Bs + tt * L::kLdJ + jc;
-        if (p.b_vec) {
-          const bool ok = b_col >= 0 && t < p.T;
-          cp_async16(dst, ok ? b + (long)t * p.ldb + b_col : b, ok);
-        } else {
-#pragma unroll
-          for (int e = 0; e < V; ++e) {
-            const int j = j0 + jc + e;
-            dst[e] = (j < p.J_kept && t < p.T) ? b[Policy::b_off(p, t, j)]
-                                                : zero;
-          }
-        }
-      }
-    }
+    else
+      load_cols(b, b_col, p.ldb, L::kLdJ, j0, p.J_kept, Bs, t0, p.b_vec,
+                [&](int t, int j) { return Policy::b_off(p, t, j); });
   };
 
   float acc[2][4][4];
@@ -598,10 +682,9 @@ pruned_gemm_tc_kernel(Args p, float* __restrict__ partial,
     }
 }
 
-// The second pass where the output is scattered (#8 without
-// compact_out): y at Policy::c_off(i, j) = the sum of the splits'
-// partials at (i, j) of the kept region, in a fixed order. The pruned
-// columns got their zeros from the first launch.
+// The second pass of #8 without compact_out: y at Policy::c_off(i, j) =
+// the sum of the splits' partials at (i, j) of the kept region, in a fixed
+// order. The pruned columns got their zeros from the first launch.
 template <typename Policy, typename T>
 __global__ void reduce_splits_scatter_kernel(
     Args p, const float* __restrict__ partial, int splits) {
@@ -630,20 +713,26 @@ int tc_config(const Args& p, int splits, int dtype, LaunchRec* r,
     return 0;
   const int sps = tc_steps_per_split(p, splits);
   const int used = ((p.T + kTcDepth - 1) / kTcDepth + sps - 1) / sps;
-  // with a scattered output, extra blocks along x write the zeros of the
-  // pruned columns [J_kept, J) in kTcCols-wide chunks, `used` per x
-  const int zero_chunks = Policy::SCATTER && !p.flag
-                              ? (p.J - p.J_kept + kTcCols - 1) / kTcCols : 0;
+  // with a scattered output, extra blocks write the zeros of the pruned
+  // columns [J_kept, J) (along x) or rows [I_kept, I) (along y) in
+  // kTcRows x kTcCols chunks, `used` per extra block
+  const bool scattered = Policy::scattered(p);
+  const int zero_x = scattered && Policy::ZERO == kZeroCols
+                         ? (p.J - p.J_kept + kTcCols - 1) / kTcCols : 0;
+  const int zero_y = scattered && Policy::ZERO == kZeroRows
+                         ? (p.I - p.I_kept + kTcRows - 1) / kTcRows : 0;
   set_launch(&r[0], names,
              dim3((p.J_kept + kTcCols - 1) / kTcCols +
-                      (zero_chunks + used - 1) / used,
-                  (p.I_kept + kTcRows - 1) / kTcRows, used),
+                      (zero_x + used - 1) / used,
+                  (p.I_kept + kTcRows - 1) / kTcRows +
+                      (zero_y + used - 1) / used,
+                  used),
              kTcThreads, tc_smem_bytes<Policy>(dtype),
              "pruned_gemm_tc_kernel<%s,%s>", Policy::kName, dt_name(dtype));
   // one thread per element of the kept region (the whole output when it
   // is compact)
   const dim3 sum_grid((unsigned)(((long)p.I_kept * p.J_kept + 255) / 256));
-  if (Policy::SCATTER && !p.flag)
+  if (scattered)
     set_launch(&r[1], names, sum_grid, 256, 0,
                "reduce_splits_scatter_kernel<%s,%s>", Policy::kName,
                dt_name(dtype));
@@ -664,10 +753,19 @@ int tc_launch_t(Args p, float* partial, int splits, cudaStream_t st) {
       r[0].grid[1] > 65535 || r[0].grid[2] > 65535)
     return (int)cudaErrorInvalidValue;
   constexpr int V = TcLayout<Policy, T>::kVec;
-  p.a_vec = aligned16(p.a) && p.lda % V == 0 && p.T % V == 0;
+  // whole 16-byte copies: along t, the contraction's rows; along i or j,
+  // the kept edge and, through a block map, the block
+  p.a_vec = aligned16(p.a) && p.lda % V == 0 &&
+            (Policy::A_CONTIG_T
+                 ? p.T % V == 0
+                 : p.I_kept % V == 0 && (!Policy::A_MAPPED || p.blk % V == 0));
   p.b_vec = aligned16(p.b) && p.ldb % V == 0 &&
-            (Policy::B_CONTIG_T ? p.T % V == 0 : p.blk % V == 0);
-  p.c_vec = aligned16(p.c) && p.ldc % V == 0 && p.blk % V == 0;
+            (Policy::B_CONTIG_T
+                 ? p.T % V == 0
+                 : p.J_kept % V == 0 && (!Policy::B_MAPPED || p.blk % V == 0));
+  // zero stores run along j: inside one row (zero rows) or one block
+  p.c_vec = aligned16(p.c) && p.ldc % V == 0 &&
+            (Policy::ZERO == kZeroRows ? p.J % V == 0 : p.blk % V == 0);
   const int used = r[0].grid[2];
   cudaError_t e = allow_smem(pruned_gemm_tc_kernel<Policy, T>, r[0].smem);
   if (e != cudaSuccess) return (int)e;
@@ -676,8 +774,8 @@ int tc_launch_t(Args p, float* partial, int splits, cudaStream_t st) {
                                            tc_steps_per_split(p, splits));
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  if constexpr (Policy::SCATTER) {
-    if (!p.flag) {
+  if constexpr (Policy::ZERO != kZeroNone) {
+    if (Policy::scattered(p)) {
       reduce_splits_scatter_kernel<Policy, T>
           <<<grid_of(r[1]), r[1].threads, 0, st>>>(p, partial, used);
       return (int)cudaGetLastError();
@@ -698,7 +796,7 @@ int tc_launch(const Args& p, float* partial, int splits, int dtype,
 }
 
 // ---------------------------------------------------------------------------
-// The CUDA-core core (#9, #11, #12)
+// The CUDA-core core (#11)
 // ---------------------------------------------------------------------------
 
 // The one launch of a call; returns the count, 0 for shapes it refuses.
@@ -788,21 +886,22 @@ extern "C" int repro_pruned_matmul_dx_launch_config(
 }
 
 // #9. x [M, nb*B] (or [M, kb*B] with x_compact), dy [M, N], order [nb]
-// -> dw [nb*B, N].
+// -> dw [nb*B, N]; partial f32 scratch of at least splits * kb*B * N.
 extern "C" int repro_pruned_matmul_dw(
-    const void* x, const void* dy, const int* order, void* dw, int M, int N,
-    int nb, int kb, int block, int x_compact, int dtype, void* stream) {
-  return launch<DwPolicy>(
-      dw_args(x, dy, order, dw, M, N, nb, kb, block, x_compact), dtype,
-      static_cast<cudaStream_t>(stream));
+    const void* x, const void* dy, const int* order, float* partial,
+    void* dw, int M, int N, int nb, int kb, int block, int x_compact,
+    int splits, int dtype, void* stream) {
+  return tc_launch<DwPolicy>(
+      dw_args(x, dy, order, dw, M, N, nb, kb, block, x_compact), partial,
+      splits, dtype, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int repro_pruned_matmul_dw_launch_config(
-    int M, int N, int nb, int kb, int block, int x_compact, int dtype,
-    LaunchRec* r) {
-  return config(dw_args(nullptr, nullptr, nullptr, nullptr, M, N, nb, kb,
-                        block, x_compact),
-                DwPolicy::kName, dtype, r, true);
+    int M, int N, int nb, int kb, int block, int x_compact, int splits,
+    int dtype, LaunchRec* r) {
+  return tc_config<DwPolicy>(dw_args(nullptr, nullptr, nullptr, nullptr, M,
+                                     N, nb, kb, block, x_compact),
+                             splits, dtype, r, true);
 }
 
 // #10. x [M, K], w [K, H], keep [kb] -> yc [M, kb*B]; partial f32
@@ -839,17 +938,21 @@ extern "C" int repro_outpruned_matmul_dx_launch_config(
                 OpDxPolicy::kName, dtype, r, true);
 }
 
-// #12. x [M, K], dyc [M, kb*B], order [nb] -> dw [K, nb*B].
+// #12. x [M, K], dyc [M, kb*B], order [nb] -> dw [K, nb*B]; partial f32
+// scratch of at least splits * K * kb*B.
 extern "C" int repro_outpruned_matmul_dw(
-    const void* x, const void* dyc, const int* order, void* dw, int M, int K,
-    int nb, int kb, int block, int dtype, void* stream) {
-  return launch<OpDwPolicy>(opdw_args(x, dyc, order, dw, M, K, nb, kb, block),
-                            dtype, static_cast<cudaStream_t>(stream));
+    const void* x, const void* dyc, const int* order, float* partial,
+    void* dw, int M, int K, int nb, int kb, int block, int splits, int dtype,
+    void* stream) {
+  return tc_launch<OpDwPolicy>(
+      opdw_args(x, dyc, order, dw, M, K, nb, kb, block), partial, splits,
+      dtype, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int repro_outpruned_matmul_dw_launch_config(
-    int M, int K, int nb, int kb, int block, int dtype, LaunchRec* r) {
-  return config(opdw_args(nullptr, nullptr, nullptr, nullptr, M, K, nb, kb,
-                          block),
-                OpDwPolicy::kName, dtype, r, true);
+    int M, int K, int nb, int kb, int block, int splits, int dtype,
+    LaunchRec* r) {
+  return tc_config<OpDwPolicy>(opdw_args(nullptr, nullptr, nullptr, nullptr,
+                                         M, K, nb, kb, block),
+                               splits, dtype, r, true);
 }

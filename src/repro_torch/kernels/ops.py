@@ -201,8 +201,8 @@ def inverse_order(keep_idx: torch.Tensor, nb: int) -> torch.Tensor:
     return torch.cat([keep, pruned[: nb - keep.shape[0]].to(torch.int32)])
 
 
-# the tensor-core core of #8 and #10 (pruned_grad.cu): output tile edge
-# and contraction depth of one ring stage
+# the tensor-core core of #8, #9, #10 and #12 (pruned_grad.cu): output
+# tile edge and contraction depth of one ring stage
 TC_TILE, TC_DEPTH = 64, 32
 
 
@@ -215,6 +215,22 @@ def _tc_partials(rows: int, cols: int, depth: int, device):
     splits = _splits(-(-depth // TC_DEPTH),
                      -(-rows // TC_TILE) * -(-cols // TC_TILE), device,
                      per_sm=2)
+    return splits, torch.empty((splits, rows, cols), dtype=torch.float32,
+                               device=device)
+
+
+def _dw_partials(rows: int, cols: int, depth: int, device, splits=None):
+    """The split count of #9's and #12's calls on the tensor-core core
+    for a kept output of ``rows x cols`` over a contraction of ``depth``
+    (about three blocks per SM over the kept tiles, the fastest in f32 at
+    the train shapes; at most one range per stage, counted as the ranges
+    of whole stages it makes: the kernel's grid.z; ``splits`` replaces the
+    first choice), and their f32 partial buffer [splits, rows, cols]."""
+    stages = -(-depth // TC_DEPTH)
+    if splits is None:
+        splits = _splits(stages, -(-rows // TC_TILE) * -(-cols // TC_TILE),
+                         device, per_sm=3)
+    splits = -(-stages // -(-stages // max(1, min(splits, stages))))
     return splits, torch.empty((splits, rows, cols), dtype=torch.float32,
                                device=device)
 
@@ -349,13 +365,14 @@ def pruned_matmul_dw(x: torch.Tensor, dy: torch.Tensor, order: torch.Tensor,
     dt, idx = _kernel_args(what, (x, dy), order)
     M, N = dy.shape
     y = _out(out, (nb * block, N), dy)
+    splits, partial = _dw_partials(kb * block, N, M, dy.device)
     err = _build.library().lib.repro_pruned_matmul_dw(
         x.contiguous().data_ptr(), dy.contiguous().data_ptr(),
-        idx.data_ptr(), y.data_ptr(), M, N, nb, kb, block, int(x_compact),
-        dt, _stream(dy.device))
+        idx.data_ptr(), partial.data_ptr(), y.data_ptr(), M, N, nb, kb,
+        block, int(x_compact), splits, dt, _stream(dy.device))
     _build.check(err, what)
     _launched(pruned_matmul_dw, ("repro_pruned_matmul_dw", M, N, nb, kb,
-                                 block, int(x_compact), dt))
+                                 block, int(x_compact), splits, dt))
     return y
 
 
@@ -468,13 +485,14 @@ def outpruned_matmul_dw(x: torch.Tensor, dyc: torch.Tensor,
     dt, idx = _kernel_args(what, (x, dyc), order)
     M, K = x.shape
     y = _out(out, (K, nb * block), dyc)
+    splits, partial = _dw_partials(K, kb * block, M, dyc.device)
     err = _build.library().lib.repro_outpruned_matmul_dw(
         x.contiguous().data_ptr(), dyc.contiguous().data_ptr(),
-        idx.data_ptr(), y.data_ptr(), M, K, nb, kb, block, dt,
-        _stream(dyc.device))
+        idx.data_ptr(), partial.data_ptr(), y.data_ptr(), M, K, nb, kb,
+        block, splits, dt, _stream(dyc.device))
     _build.check(err, what)
     _launched(outpruned_matmul_dw, ("repro_outpruned_matmul_dw", M, K, nb, kb,
-                                    block, dt))
+                                    block, splits, dt))
     return y
 
 

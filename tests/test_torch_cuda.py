@@ -527,3 +527,135 @@ def test_cuda_tc_launch_configs_split_and_sum(cuda_device):
     assert [ln.fn for ln in res] == [
         "pruned_gemm_tc_kernel<DxPolicy,__nv_bfloat16>",
         "reduce_splits_kernel<__nv_bfloat16>"]
+
+
+# ---------------------------------------------------------------------------
+# #9 and #12 on the tensor-core core (A read along its rows: x
+# transposed): ragged M, odd widths, block 6, 8 and 128, x_compact,
+# unsorted keep lists, unaligned bases, one range and more ranges asked for
+# than stages, determinism, launch names
+# ---------------------------------------------------------------------------
+
+# name: (M, width, nb, kb, block, sorted keep, base offset in elements,
+# split count asked for, None for the wrapper's). The width is N (dy's
+# columns) for #9 and K (x's columns) for #12.
+_DW_CASES = {
+    "train_b8": (520, 512, 256, 32, 8, True, 0, None),
+    "m70_b128_unsorted": (70, 96, 6, 3, 128, False, 0, None),
+    # odd widths: no operand row or output row is a 16-byte multiple
+    "m70_b8_odd_width": (70, 97, 24, 7, 8, False, 0, None),
+    # block 6: a mapped column block is not whole 16-byte copies
+    "block6": (40, 64, 12, 5, 6, False, 0, None),
+    "unaligned_base": (33, 128, 8, 3, 8, False, 1, None),
+    # 3 stages asked for 40 ranges: one range per stage
+    "splits_exceed_stages": (70, 64, 16, 4, 8, True, 0, 40),
+    "unsplit": (70, 64, 16, 4, 8, False, 0, 1),
+    # 17 stages in 9 ranges
+    "nine_ranges": (520, 64, 16, 4, 8, False, 0, 16),
+}
+
+
+def _dw_keep(case, device):
+    import numpy as np
+    _, _, nb, kb, _, is_sorted, _, _ = _DW_CASES[case]
+    keep = np.random.default_rng(sum(map(ord, case))).permutation(nb)[:kb]
+    if is_sorted:
+        keep = np.sort(keep)
+    return torch.tensor(keep, dtype=torch.int32, device=device)
+
+
+def _dw_run(monkeypatch, case, policy, dtype, run, ref, shape, device,
+            wrapper):
+    """``_tc_check`` under the case's split count, with the launch names:
+    the tensor-core product (its grid.z the ranges of whole stages), then
+    the ordered scatter of the splits' sums."""
+    splits = _DW_CASES[case][-1]
+    if splits is not None:
+        real = tops._dw_partials
+        monkeypatch.setattr(tops, "_dw_partials",
+                            lambda r, c, d, dv: real(r, c, d, dv,
+                                                     splits=splits))
+    launches = []
+    prev = tops.set_launch_hook(lambda name, ls: launches.append(ls))
+    try:
+        _tc_check(run, ref, shape, dtype, device, wrapper)
+    finally:
+        tops.set_launch_hook(prev)
+    t = "float" if dtype == torch.float32 else "__nv_bfloat16"
+    assert len(launches) == 2
+    for ls in launches:
+        assert [ln.fn for ln in ls] == [
+            f"pruned_gemm_tc_kernel<{policy},{t}>",
+            f"reduce_splits_scatter_kernel<{policy},{t}>"]
+        if splits is not None:
+            stages = -(-_DW_CASES[case][0] // tops.TC_DEPTH)
+            per = -(-stages // min(splits, stages))
+            assert ls[0].grid[2] == -(-stages // per)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_compact", [False, True])
+@pytest.mark.parametrize("case", sorted(_DW_CASES))
+def test_cuda_tc_pruned_matmul_dw_matches_plain(cuda_device, monkeypatch,
+                                                dtype, x_compact, case):
+    import numpy as np
+    M, N, nb, kb, block, _, off, _ = _DW_CASES[case]
+    g = np.random.default_rng(len(case) + 2)
+    x = _tc_operand(g, (M, (kb if x_compact else nb) * block), dtype,
+                    cuda_device, off)
+    dy = _tc_operand(g, (M, N), dtype, cuda_device, off, 0.05)
+    order = tops.inverse_order(_dw_keep(case, cuda_device), nb)
+    _dw_run(monkeypatch, case, "DwPolicy", dtype,
+            lambda out: tops.pruned_matmul_dw(
+                x, dy, order, kb=kb, block=block, x_compact=x_compact,
+                out=out),
+            tops.pruned_matmul_dw_plain(x, dy, order, kb, block, x_compact),
+            (nb * block, N), cuda_device, tops.pruned_matmul_dw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(_DW_CASES))
+def test_cuda_tc_outpruned_matmul_dw_matches_plain(cuda_device, monkeypatch,
+                                                   dtype, case):
+    import numpy as np
+    M, K, nb, kb, block, _, off, _ = _DW_CASES[case]
+    g = np.random.default_rng(len(case) + 3)
+    x = _tc_operand(g, (M, K), dtype, cuda_device, off)
+    dyc = _tc_operand(g, (M, kb * block), dtype, cuda_device, off, 0.05)
+    order = tops.inverse_order(_dw_keep(case, cuda_device), nb)
+    _dw_run(monkeypatch, case, "OpDwPolicy", dtype,
+            lambda out: tops.outpruned_matmul_dw(x, dyc, order, kb=kb,
+                                                 block=block, out=out),
+            tops.outpruned_matmul_dw_plain(x, dyc, order, kb, block),
+            (K, nb * block), cuda_device, tops.outpruned_matmul_dw)
+
+
+@pytest.mark.cuda
+def test_cuda_tc_dw_launch_configs(cuda_device):
+    """#9 and #12 report the tensor-core product, whose extra blocks
+    write the zeros (#9's pruned rows along y, #12's pruned columns along
+    x), and the ordered scatter of the splits' sums."""
+    from repro_torch.kernels import build
+
+    # #9 at wq's shape: 4 x 8 kept tiles, 28 zero-row chunks per column
+    dw = build.launch_config("repro_pruned_matmul_dw", 520, 512, 256, 32, 8,
+                             0, 4, 0)
+    assert [ln.fn for ln in dw] == [
+        "pruned_gemm_tc_kernel<DwPolicy,float>",
+        "reduce_splits_scatter_kernel<DwPolicy,float>"]
+    assert dw[0].grid == (8, 4 + 7, 4)
+    assert dw[0].smem > 48 * 1024
+    assert dw[1].grid[0] * dw[1].threads >= 256 * 512
+    # #12 at the FFN's shape: 32 x 4 kept tiles, 29 zero-column chunks
+    op = build.launch_config("repro_outpruned_matmul_dw", 520, 2048, 256, 30,
+                             8, 3, 1)
+    assert [ln.fn for ln in op] == [
+        "pruned_gemm_tc_kernel<OpDwPolicy,__nv_bfloat16>",
+        "reduce_splits_scatter_kernel<OpDwPolicy,__nv_bfloat16>"]
+    assert op[0].grid == (4 + 10, 32, 3)
+    # 40 ranges asked of 3 stages: one range per stage
+    many = build.launch_config("repro_outpruned_matmul_dw", 70, 64, 16, 4, 6,
+                               40, 0)
+    assert many[0].grid == (1 + 1, 1, 3)
