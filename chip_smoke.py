@@ -19,7 +19,9 @@ Phases, each printing one line of its own; any failure exits non-zero:
               one invalid lane, a shuffled page order, trailing -1
               entries); each timed with CUDA events beside its plain
               version, a one-call PyTorch yardstick where one exists, and
-              its bound at 3.35 TB/s and 989 (bf16) / 67 (f32) TFLOP/s;
+              its bound at 3.35 TB/s and 989 (bf16) / 67 (f32) TFLOP/s
+              (the tensor-core kernels' f32 also at 3xTF32's 495/3), the
+              yardstick's device time beside its event time;
               the unfused decode attention (#7, the baseline of the fused
               one) at #1's shapes and positions, with a second bound for
               its own traffic (every K/V row and the f32 score matrix),
@@ -63,9 +65,10 @@ Phases, each printing one line of its own; any failure exits non-zero:
               skipped element shows, and a second call that must give the
               same bits; block 128 at a small shape with the compact modes
               and an unsorted keep list; each timed like phase 2 (#8, #9,
-              #10 and #12, on the tensor cores, also beside a 3xTF32
-              bound at 495/3 TFLOP/s), plus the forward kernels (#2, #3)
-              at the train shapes.
+              #10, #11 and #12, on the tensor cores, also beside a 3xTF32
+              bound at 495/3 TFLOP/s), plus the forward kernels at the
+              train shapes (#2 at wq_r and wo_r on the tensor-core core,
+              with the library's device time; #3).
 7. train-reference — one controlled step (rank 0 resized and a migration
               source) of a two-layer, full-width ViT-1B in f32 at tp 4:
               loss and every gradient, kernel path against plain path.
@@ -76,7 +79,8 @@ Phases, each printing one line of its own; any failure exits non-zero:
               finite; at least one resized and one migrating step.
 9. train-profile — three steps of the same model under the run's plan,
               under torch.profiler: wall vs device time, by family, and
-              the backward family's kernels by name.
+              the block-pruned kernels by name (#2 and #3's down product
+              on the tensor-core core, #8-#12; no CUDA-core product left).
 
 Then one JSON line of per-kernel numbers (launches of each kernel from
 the run of its path: #1-#3 phase 4, #4 paged-serve, #5 / #6 the two
@@ -97,10 +101,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,
-              # f32 products on the tensor cores as 3xTF32 (#8-#10, #12)
+              # f32 products on the tensor cores as 3xTF32 (#2, #8-#12)
               "3xtf32": 495e12 / 3}
-TENSOR_CORE_F32 = ("pruned_matmul_dx", "pruned_matmul_dw", "outpruned_matmul",
-                   "outpruned_matmul_dw")
+TENSOR_CORE_F32 = ("block_pruned_matmul", "pruned_matmul_dx",
+                   "pruned_matmul_dw", "outpruned_matmul",
+                   "outpruned_matmul_dx", "outpruned_matmul_dw")
 F32_TOL, BF16_TOL = 1e-4, 2e-2
 REPLACES = {
     "block_pruned_matmul": "src/repro/kernels/pruned_matmul.py:81",
@@ -276,6 +281,23 @@ def main():
         total = sum(r[2] for r in rows)
         return total / n if total > 0 else None
 
+    def library_device_ms(fn, n_sets, iters=10):
+        """Device time per call of a library yardstick, from the profiler:
+        it launches none of the port's kernels, so every kernel record of
+        the window counts (None without a yardstick or without records)."""
+        if fn is None:
+            return None
+        for i in range(3):
+            fn(i % n_sets)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i % n_sets)
+            torch.cuda.synchronize()
+        total = sum(r[2] for r in kernel_times(prof))
+        return total / iters if total > 0 else None
+
     def errs(got, ref):
         g, r = got.float(), ref.float()
         return float((g - r).abs().max()), float(r.abs().max())
@@ -345,7 +367,9 @@ def main():
                     "plain_ms": time_ms(lambda i: ops.block_pruned_matmul_plain(
                         xs[i], ws[i], keep, blk), n_sets),
                     "library_ms": time_ms(lambda i: torch.matmul(xk[i], wk[i]),
-                                          n_sets)}
+                                          n_sets),
+                    "library_device_ms": library_device_ms(
+                        lambda i: torch.matmul(xk[i], wk[i]), n_sets)}
                 K_kept = kc * blk
                 nbytes = (B * K_kept + K_kept * N + B * N) * es + kc * 4
                 record("block_pruned_matmul",
@@ -454,7 +478,8 @@ def main():
                     qs[i], ks[i], vs[i], cur_pos=cur, window=window), n_sets),
                 "plain_ms": time_ms(lambda i: ops.gqa_decode_attn_plain(
                     qs[i], ks[i], vs[i], cur, window), n_sets),
-                "library_ms": time_ms(sdpa, n_sets)}
+                "library_ms": time_ms(sdpa, n_sets),
+                "library_device_ms": library_device_ms(sdpa, n_sets)}
             rows = int(mask.sum())                 # attended rows, all slots
             nbytes = (rows * Hkv * 2 * D + 2 * B * Hq * D) * es + B * 4
             flops = rows * (Hq // Hkv) * Hkv * 2 * 2 * D
@@ -497,7 +522,10 @@ def main():
             "plain_ms": time_ms(lambda i: ops.unfused_gqa_decode_attn_plain(
                 qs[i], ks[i], vs[i], cur), n_sets),
             "library_ms": time_ms(lambda i: F.scaled_dot_product_attention(
-                qs[i], kx[i], vx[i], attn_mask=mask), n_sets)}
+                qs[i], kx[i], vx[i], attn_mask=mask), n_sets),
+            "library_device_ms": library_device_ms(
+                lambda i: F.scaled_dot_product_attention(
+                    qs[i], kx[i], vx[i], attn_mask=mask), n_sets)}
         if dtype == torch.bfloat16:
             krows, n = profiled_kernels(lambda i: ops.unfused_decode_attention(
                 qs[i], ks[i], vs[i], cur_pos=cur), n_sets)
@@ -604,6 +632,10 @@ def main():
         return (time_ms(lambda i: fns[i](), n_sets) if fns[0] is not None
                 else None)
 
+    def lib_device_ms(fns, n_sets):
+        return library_device_ms(
+            (lambda i: fns[i]()) if fns[0] is not None else None, n_sets)
+
     from repro_torch.layers.attention import (gather_paged_kv,
                                               gather_paged_rows)
     for dtype in (torch.float32, torch.bfloat16):
@@ -635,7 +667,8 @@ def main():
                         window=window), n_sets),
                 "plain_ms": time_ms(lambda i: ops.gqa_paged_decode_attn_plain(
                     qs[i], kps[i], vps[i], pages, cur, window), n_sets),
-                "library_ms": lib_ms(lib_fns, n_sets)}
+                "library_ms": lib_ms(lib_fns, n_sets),
+                "library_device_ms": lib_device_ms(lib_fns, n_sets)}
             rows = int(ok_rows.sum())
             nbytes = ((rows * Hkv * 2 * D + 2 * B * Hq * D) * es + B * 4
                       + B * PPS * 4)
@@ -675,7 +708,8 @@ def main():
                 head_dim_for_scale=SCALE_DIM), n_sets),
             "plain_ms": time_ms(lambda i: ops.mla_decode_attn_plain(
                 qas[i], qrs[i], lats[i], ropes[i], cur, SCALE_DIM), n_sets),
-            "library_ms": lib_ms(lib_fns, n_sets)}
+            "library_ms": lib_ms(lib_fns, n_sets),
+            "library_device_ms": lib_device_ms(lib_fns, n_sets)}
         rows = int(ok_rows.sum())
         mla_bytes = (rows * (R_MLA + DR_MLA) * es
                      + B * H_MLA * (R_MLA + DR_MLA) * es
@@ -715,7 +749,8 @@ def main():
             "plain_ms": time_ms(lambda i: ops.mla_paged_decode_attn_plain(
                 qas[i], qrs[i], lps[i], rps[i], pages, cur, SCALE_DIM),
                 n_sets),
-            "library_ms": lib_ms(lib_fns, n_sets)}
+            "library_ms": lib_ms(lib_fns, n_sets),
+            "library_device_ms": lib_device_ms(lib_fns, n_sets)}
         rows = int(ok_rows.sum())
         mla_bytes = (rows * (R_MLA + DR_MLA) * es
                      + B * H_MLA * (R_MLA + DR_MLA) * es
@@ -977,6 +1012,8 @@ def main():
 
     def family(name):
         for key, fam in (("bpm_", "block-pruned products (proj + FFN down)"),
+                         ("BpmPolicy",
+                          "block-pruned products (proj + FFN down)"),
                          ("ffn_hidden", "fused_pruned_ffn hidden stage"),
                          ("gqa_decode", "fused_decode_attention"),
                          ("gqa_paged", "fused_paged_decode_attention"),
@@ -993,6 +1030,9 @@ def main():
         f = fams.setdefault(family(name), [0, 0.0])
         f[0] += calls
         f[1] += ms
+    if not any("bpm_decode_kernel" in name for name, _, _ in rows):
+        raise SystemExit("profile: the decode step launched no "
+                         "bpm_decode_kernel (#2 at 8 slots)")
     say("profile", f"decode-only step, 8 active slots: wall {pwall_ms:.2f} "
         f"ms/step, device kernels {dev_step_ms:.2f} ms/step, device busy "
         f"{dev_step_ms / pwall_ms:.1%} (idle {1 - dev_step_ms / pwall_ms:.1%})")
@@ -1314,31 +1354,42 @@ def main():
             2 * M_T * D_V * C, f32)
         del make_ffn
 
-        # the forward kernels at the train shapes (designed for M = 8, so
-        # each weight element is read once per 8-row tile: 65 times here)
-        keep = kept_sorted(256, 32, 43)
-        n_sets = copies_for(D_V * ATT_LOC * es)
-        xs = [rnd((M_T, D_V), dtype) for _ in range(n_sets)]
-        ws = [rnd((D_V, ATT_LOC), dtype, 0.02) for _ in range(n_sets)]
-        xk = [x.reshape(M_T, 256, B8)[:, keep.long()].reshape(M_T, -1)
-              for x in xs]
-        wk = [rows_of(w, keep, B8) for w in ws]
-        got = ops.block_pruned_matmul(xs[0], ws[0], keep, block=B8)
-        ref = ops.block_pruned_matmul_plain(xs[0], ws[0], keep, B8)
-        timings = {
-            "ms": time_ms(lambda i: ops.block_pruned_matmul(
-                xs[i], ws[i], keep, block=B8), n_sets),
-            "device_ms": device_ms(lambda i: ops.block_pruned_matmul(
-                xs[i], ws[i], keep, block=B8), n_sets),
-            "plain_ms": time_ms(lambda i: ops.block_pruned_matmul_plain(
-                xs[i], ws[i], keep, B8), n_sets),
-            "library_ms": time_ms(lambda i: torch.matmul(xk[i], wk[i]),
-                                  n_sets)}
-        record("block_pruned_matmul", "train shape x[520,2048] @ "
-               "wq_r[2048,512] block 8 keep 32/256", dtype, got, ref,
-               timings, (M_T * 256 + 256 * ATT_LOC + M_T * ATT_LOC) * es,
-               2 * M_T * 256 * ATT_LOC, False, "grad-kernels")
-        del xs, ws, xk, wk
+        # the forward kernels at the train shapes: #2 on the tensor-core
+        # core (M = 520 is above the decode kernel's rows) at wq_r and
+        # wo_r, with the straggler's keep counts
+        for wname, K, N, nb, kb in (("wq_r", D_V, ATT_LOC, 256, 32),
+                                    ("wo_r", ATT_LOC, D_V, 64, 8)):
+            keep = kept_sorted(nb, kb, 43)
+            n_sets = copies_for(K * N * es)
+            xs = [rnd((M_T, K), dtype) for _ in range(n_sets)]
+            ws = [rnd((K, N), dtype, 0.02) for _ in range(n_sets)]
+            xk = [x.reshape(M_T, nb, B8)[:, keep.long()].reshape(M_T, -1)
+                  for x in xs]
+            wk = [rows_of(w, keep, B8) for w in ws]
+            got = ops.block_pruned_matmul(xs[0], ws[0], keep, block=B8)
+            again = ops.block_pruned_matmul(xs[0], ws[0], keep, block=B8)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                failures.append(f"block_pruned_matmul {wname} {dtype}: two "
+                                "runs differ")
+            ref = ops.block_pruned_matmul_plain(xs[0], ws[0], keep, B8)
+            timings = {
+                "ms": time_ms(lambda i: ops.block_pruned_matmul(
+                    xs[i], ws[i], keep, block=B8), n_sets),
+                "device_ms": device_ms(lambda i: ops.block_pruned_matmul(
+                    xs[i], ws[i], keep, block=B8), n_sets),
+                "plain_ms": time_ms(lambda i: ops.block_pruned_matmul_plain(
+                    xs[i], ws[i], keep, B8), n_sets),
+                "library_ms": time_ms(lambda i: torch.matmul(xk[i], wk[i]),
+                                      n_sets),
+                "library_device_ms": library_device_ms(
+                    lambda i: torch.matmul(xk[i], wk[i]), n_sets)}
+            Kk = kb * B8
+            record("block_pruned_matmul", f"train shape {wname} "
+                   f"x[520,{K}] @ w[{K},{N}] block 8 keep {kb}/{nb}", dtype,
+                   got, ref, timings, (M_T * Kk + Kk * N + M_T * N) * es
+                   + kb * 4, 2 * M_T * Kk * N, False, "grad-kernels")
+            del xs, ws, xk, wk
         keep = kept_sorted(FF_LOC // B8, 30, 44)
         n_sets = copies_for(2 * D_V * FF_LOC * es)
         xs = [rnd((M_T, D_V), dtype) for _ in range(n_sets)]
@@ -1553,7 +1604,10 @@ def main():
     tdev_ms = sum(r[2] for r in trows) / n_prof
 
     def train_family(name):
-        for key, fam in (("pruned_gemm", "backward family #8-#12"),
+        # #2 and #3's down product share the tensor-core core with #8-#12:
+        # by policy first
+        for key, fam in (("BpmPolicy", "block-pruned forward #2 (+ FFN down)"),
+                         ("pruned_gemm", "backward family #8-#12"),
                          ("bpm_", "block-pruned forward #2 (+ FFN down)"),
                          ("ffn_hidden", "pruned-FFN hidden stage #3"),
                          ("reduce_splits", "split reductions")):
@@ -1571,6 +1625,13 @@ def main():
         f = tfams.setdefault(train_family(name), [0, 0.0])
         f[0] += calls
         f[1] += ms
+    tnames = [name for name, _, _ in trows]
+    missing = [k for k in ("BpmPolicy", "OpDxPolicy")
+               if not any(k in n for n in tnames)]
+    if missing or any("pruned_gemm_kernel" in n for n in tnames):
+        raise SystemExit(f"train-profile: tensor-core policies {missing} "
+                         "never launched, or a CUDA-core product "
+                         "(pruned_gemm_kernel) did")
     say("train-profile", f"full-width step, plan [7,0,0,0] + source 0: wall "
         f"{twall_ms:.1f} ms/step, device kernels {tdev_ms:.1f} ms/step, "
         f"device busy {tdev_ms / twall_ms:.1%} (idle "
@@ -1580,6 +1641,7 @@ def main():
             f"{calls / n_prof:.0f} kernels/step")
     for name, calls, ms in trows:
         if train_family(name) in ("backward family #8-#12",
+                                  "block-pruned forward #2 (+ FFN down)",
                                   "split reductions"):
             say("train-profile", f"  kernel: {ms / n_prof:.2f} ms/step, "
                 f"{calls / n_prof:.0f}/step  {name[:110]}")

@@ -142,6 +142,10 @@ def _kernel_cases(env: reg.CaseEnv) -> List[reg.TraceCase]:
         case("block_pruned_matmul_default_tiles",
              lambda x, w, k: ops.block_pruned_matmul(x, w, k),
              rnd(512, 1024), rnd(1024, 1024, scale=0.03), keep4)
+        # 8 rows (the serving slots): #2's decode kernel
+        case("block_pruned_matmul_decode",
+             lambda x, w, k: ops.block_pruned_matmul(x, w, k),
+             rnd(8, 1024), rnd(1024, 1024, scale=0.03), keep4)
         case("fused_pruned_ffn_default_tiles",
              lambda x, wu, wd, k: ops.fused_pruned_ffn(
                  x, wu, wd, k, None, ops.silu),

@@ -58,8 +58,10 @@ SIGNATURES = {
                                _I, _I, _P),
     "repro_outpruned_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _P),
-    "repro_outpruned_matmul_dx": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                  _P),
+    "repro_outpruned_matmul_dx": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _I, _P),
+    "repro_block_pruned_matmul_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                     _I, _I, _I, _P),
     "repro_outpruned_matmul_dw": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _I, _P),
     "repro_unfused_gqa_decode_attn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -72,13 +74,16 @@ CONFIG_SIGNATURES = {
     "repro_gqa_paged_decode_attn": 7,     # B, Hkv, G, D, Dv, splits, dtype
     "repro_mla_decode_attn": 7,           # B, H, R, Dr, splits, paged, dtype
     "repro_block_pruned_matmul": 6,       # M, N, kb, block, splits, dtype
+    "repro_block_pruned_matmul_tc": 8,    # M, K, N, kb, block, x_compact,
+                                          # splits, dtype
     "repro_pruned_ffn_hidden": 6,         # M, K, kb, block, splits, dtype
     "repro_pruned_matmul_dx": 8,          # M, N, nb, kb, block, compact,
                                           # splits, dtype
     "repro_pruned_matmul_dw": 8,          # M, N, nb, kb, block, compact,
                                           # splits, dtype
     "repro_outpruned_matmul": 7,          # M, K, H, kb, block, splits, dtype
-    "repro_outpruned_matmul_dx": 6,       # M, K, H, kb, block, dtype
+    "repro_outpruned_matmul_dx": 7,       # M, K, H, kb, block, splits,
+                                          # dtype
     "repro_outpruned_matmul_dw": 7,       # M, K, nb, kb, block, splits,
                                           # dtype
     "repro_unfused_gqa_decode_attn": 7,   # B, Hkv, G, S, D, Dv, dtype

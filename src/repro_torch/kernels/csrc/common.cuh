@@ -86,6 +86,37 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Tensor-core products through mma.sync (block_pruned_matmul.cu,
+// pruned_grad.cu): fragments in the layouts of the PTX ISA, f32
+// accumulation in place.
+//
+// x = hi + lo exactly: hi keeps the top 10 bits of x's mantissa (a TF32
+// value), lo is the remainder, which the tensor core reads as TF32 by
+// dropping its own low 13 bits. hi*hi + hi*lo + lo*hi then misses x's
+// products by about 2^-20 relative: f32's accuracy, not TF32's 2^-10.
+// A mask and a subtraction, not cvt.rna (a slow conversion pipe).
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const unsigned* a,
+                                         const unsigned* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
+                                         const unsigned* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // Ask for more than the default 48 KB of dynamic shared memory where a
 // launch needs it (up to the 227 KB a block can have on Hopper).
 template <typename K>

@@ -1,7 +1,11 @@
-// The backward family of the block-pruned products, for Hopper (sm_90a).
+// The block-pruned products on the tensor cores, for Hopper (sm_90a).
 //
-// Replaces five TPU kernels of src/repro/kernels/pruned_matmul.py:
+// Replaces five TPU kernels of src/repro/kernels/pruned_matmul.py, and
+// #2 above the decode kernel's rows (block_pruned_matmul.cu):
 //
+//   block_pruned_matmul_2d   (#2)  y = x[:, keep] @ w[keep, :], M rows
+//                                  above the decode kernel's; x_compact
+//                                  reads x as [M, kb*B] (#3's down product)
 //   pruned_matmul_dx_2d      (#8)  dX[:, order[k]] = dy @ w[order[k]]^T, k < kb;
 //                                  zeros at the pruned blocks; compact_out
 //                                  writes slot k at columns [k*B, (k+1)*B)
@@ -13,32 +17,33 @@
 //   outpruned_matmul_dw_2d   (#12) dW[:, order[k]] = x^T @ dyc[:, k], k < kb;
 //                                  zeros at the pruned columns
 //
-// All five are one product C[i, j] = sum_t A(i, t) * B(t, j) that differ
-// only in their index maps: an operand index that runs over a pruned
-// dimension reads block idx[c / B] at offset c % B (B = the pruning block,
-// resolved per B-wide block, so block 8 and block 128 run the same code),
-// and the output is written compact or scattered back through idx. Two
-// templated cores (below) hold the tiling; five small policy structs
-// hold the maps. `idx` is the keep ids (#10, #11) or the
-// inverse permutation `order` = keep ids, then pruned ids (#8, #9, #12):
-// its first kb entries pair compact slot k with block idx[k] in the
-// caller's order, sorted or not.
+// All six are one product C[i, j] = sum_t A(i, t) * B(t, j) that differ
+// only in their index maps: an index that runs over a pruned dimension
+// reads block idx[c / B] at offset c % B (B = the pruning block, resolved
+// per B-wide block, so block 8 and block 128 run the same code), and the
+// output is written compact or scattered back through idx. The pruned
+// index is i or j (#8, #9, #10, #12) or the contraction t itself (#2, #11:
+// the kept blocks of w's rows or columns are what is summed over). One
+// templated core (below) holds the tiling; six small policy structs hold
+// the maps. `idx` is the keep ids (#2, #10, #11) or the inverse
+// permutation `order` = keep ids, then pruned ids (#8, #9, #12): its
+// first kb entries pair compact slot k with block idx[k] in the caller's
+// order, sorted or not.
 //
 // What bounds it on the H100, on the training path (ViT-1B at tp = 4,
 // M = 520 rows, d = 2048, f32 products as 3xTF32 at 495/3 TFLOP/s):
-//   - #8 and #10 do 2*M flops per weight element and per output element,
-//     about 520 flops per byte read once: bound by operations, except #8
-//     with few kept blocks (`wq`: 32 of 256), where writing its mostly-zero
-//     output makes it bound by bytes;
+//   - #2, #8, #10 and #11 do 2*M flops per weight element and per output
+//     element, about 520 flops per byte read once: bound by operations,
+//     except #8 with few kept blocks (`wq`: 32 of 256), where writing its
+//     mostly-zero output makes it bound by bytes;
 //   - #9 and #12 contract over only M = 520 rows, and their outputs are
 //     full weight gradients of which the kept blocks are a small part
 //     (#9 `wq`: 256 of 2048 rows; the FFN's dW_down and dW_up: 240 of 2048
 //     rows or columns), so they are bound by bytes, and most of the bytes
 //     are the zeros of the pruned rows or columns (3.7 MB of `wq`'s 5.8,
 //     14.8 of the FFN's 21.5).
-// Two cores run them.
 //
-// #8, #9, #10 and #12 run `pruned_gemm_tc_kernel`, designed for Hopper:
+// The core, `pruned_gemm_tc_kernel`:
 //   - tensor cores through mma.sync: m16n8k16 bf16 with f32 accumulation
 //     for bf16 operands; for f32 operands m16n8k8 TF32 in the 3xTF32 form
 //     (each operand split into its top 10 mantissa bits and the rest,
@@ -47,53 +52,49 @@
 //   - 64 x 64 output tiles per block of 4 warps (32 x 32 each), operand
 //     tiles of depth 32 in a 3-stage cp.async ring in dynamic shared
 //     memory, 16 bytes a copy, out-of-range copies zero-filled (src-size
-//     0). An operand contiguous along the contraction (#8's and #10's A,
-//     #8's B) is staged [rows][32 + pad] and read by ldmatrix; one stored
-//     along i or j (x transposed, #9's and #12's A; #9's, #10's and #12's
-//     B) is staged [32][64 + 8], copied along i or j with the column of
-//     each copy resolved once per block through the block map, and read
-//     by scalar shared loads in f32 (ldmatrix has no 32-bit transpose; a
-//     pitch of 72 puts a fragment's 32 lanes on 32 banks) or by
-//     ldmatrix.trans in bf16. At block 8 a copy never crosses a block
-//     (8 f32 = two copies, 8 bf16 = one). An operand whose base, stride or
-//     block is not whole 16-byte copies takes a predicated element-wise
-//     path inside the same kernel;
+//     0). An operand contiguous along the contraction (#2's, #8's, #10's
+//     and #11's A, #8's and #11's B) is staged [rows][32 + pad] and read
+//     by ldmatrix; one stored along i or j (x transposed, #9's and #12's
+//     A; #2's, #9's, #10's and #12's B) is staged [32][64 + 8], copied
+//     along i or j with the column of each copy resolved once per block
+//     through the block map, and read by scalar shared loads in f32
+//     (ldmatrix has no 32-bit transpose; a pitch of 72 puts a fragment's
+//     32 lanes on 32 banks) or by ldmatrix.trans in bf16;
+//   - a contraction through the block map (#2's A unless x_compact and
+//     its B, #11's B): the stored position of t is resolved once per copy
+//     and stage. Along t a 16-byte copy then needs a block of whole copies
+//     (B % 4 in f32, B % 8 in bf16), so it never crosses a block; a copy
+//     along i or j reads one mapped row t. An operand whose base, stride
+//     or block is not whole 16-byte copies takes a predicated
+//     element-wise path inside the same kernel;
 //   - the contraction split across grid.z so that the kept tiles fill 132
 //     SMs (the wrapper picks the count from the shapes and the SM count:
-//     about two blocks per SM for #8 and #10, three for #9 and #12, whose
-//     17 stages give 9 ranges at `wq` and `wo` and 4 at the FFN). Each
-//     split writes f32 partials of the kept region only; a second launch
-//     sums them in a fixed order (no float atomics, so two runs are
-//     bit-identical) and writes the output: `reduce_splits_kernel` where
-//     it is contiguous (#10, #8 compact_out), `reduce_splits_scatter_kernel`
-//     through the policy's map otherwise (#8, #9, #12);
+//     about two blocks per SM for #2, #8, #10 and #11, three for #9 and
+//     #12, whose 17 stages give 9 ranges at `wq` and `wo` and 4 at the
+//     FFN). Each split writes f32 partials of the kept region only; a
+//     second launch sums them in a fixed order (no float atomics, so two
+//     runs are bit-identical) and writes the output: `reduce_splits_kernel`
+//     where it is contiguous (#2, #10, #11, #8 compact_out),
+//     `reduce_splits_scatter_kernel` through the policy's map otherwise
+//     (#8, #9, #12). Where #2 and #11 get one range (#11 at the FFN's 288
+//     tiles; #2 at `wo` and the FFN's down product) the epilogue writes
+//     the output itself and there is no second launch;
 //   - the zeros: extra blocks of the first launch write the pruned columns
 //     (#8, #12; along x) or rows (#9; along y), 64 x 64 a block in 16-byte
 //     stores, while the product runs.
 //   Measured against the alternatives (PERF.md): one range and no second
-//   launch loses 1.4-2x to the split; the zeros written by the product's
-//   own blocks, and the splits of a tile summed in a thread-block cluster
-//   through distributed shared memory, both measured slower.
-// #11 still runs `pruned_gemm_kernel`: 64 x 64 tiles on CUDA cores (4 x 4
-// per thread, f32 accumulation), depth-16 tiles staged with plain loads,
-// one launch, no split; bound by operations at 67 TFLOP/s. It gathers its
-// contraction through the map, which the tensor-core core's loaders do not
-// take.
+//   launch loses 1.4-2x to the split for #8, #9, #10 and #12; the zeros
+//   written by the product's own blocks, and the splits of a tile summed
+//   in a thread-block cluster through distributed shared memory, both
+//   measured slower.
 //
-// Zeros are written by the kernels: the old core's tiles that lie wholly
-// in the pruned region skip the contraction and store zeros, and the new
-// core's extra blocks write the pruned rows or columns. No output element
-// is left unwritten, so an output allocated with torch.empty is safe.
+// No output element is left unwritten, so an output allocated with
+// torch.empty is safe.
 #include <type_traits>
 
 #include "common.cuh"
 
 namespace {
-
-constexpr int kTile = 64;     // output tile edge
-constexpr int kDepth = 16;    // contraction depth per shared-memory stage
-constexpr int kThreads = 256;
-constexpr int kMicro = 4;     // per-thread register tile edge
 
 struct Args {
   const void* a;
@@ -104,8 +105,8 @@ struct Args {
   int I_kept, J_kept;  // outputs at i >= I_kept or j >= J_kept are zeros
   int blk;          // pruning block
   int lda, ldb, ldc;   // row strides of the operands as stored
-  int flag;         // compact_out (#8) / x_compact (#9)
-  int a_vec, b_vec, c_vec;  // tensor-core core: 16-byte copies / stores
+  int flag;         // compact_out (#8) / x_compact (#2, #9)
+  int a_vec, b_vec, c_vec;  // 16-byte copies / stores
 };
 
 __device__ __forceinline__ long mapped(const Args& p, int c) {
@@ -118,15 +119,25 @@ __device__ __forceinline__ long mapped(const Args& p, int c) {
 enum ZeroSide { kZeroNone, kZeroRows, kZeroCols };
 
 // Each policy: A_CONTIG_T (A's stored layout is contiguous along t, else
-// along i), B_CONTIG_T (B contiguous along t, else along j), the element
-// offsets a_off / b_off, and the output offset c_off. The tensor-core
-// core also reads: A_MAPPED / B_MAPPED (an operand stored along i or j
-// reads its columns through the block map, so a 16-byte copy needs a
-// block of whole copies), ZERO and scattered(p) (whether this call's
-// output is scattered, with its zeros written by the first launch).
+// along i), B_CONTIG_T (B contiguous along t, else along j), A_MAPPED /
+// B_MAPPED (an operand stored along i or j reads its columns through the
+// block map, so a 16-byte copy needs a block of whole copies), ZERO and
+// scattered(p) (whether this call's output is scattered, with its zeros
+// written by the first launch), the element offsets a_off / b_off, whose
+// t is the STORED position along the contraction, and the output offset
+// c_off. From PolicyBase, unless a policy says otherwise: a_tmap(p) /
+// b_tmap(p) (the operand's contraction index resolves through the block
+// map: the stored position of t is mapped(p, t)) and DIRECT (with one
+// range the epilogue writes the output through c_off, with no second
+// launch).
+struct PolicyBase {
+  __host__ __device__ static bool a_tmap(const Args&) { return false; }
+  __host__ __device__ static bool b_tmap(const Args&) { return false; }
+  static constexpr bool DIRECT = false;
+};
 
 // #8: A = dy [I=M, T=N]; B(t, j) = w[row(j), t]; out [M, nslots*B].
-struct DxPolicy {
+struct DxPolicy : PolicyBase {
   static constexpr const char* kName = "DxPolicy";
   static constexpr bool A_CONTIG_T = true;
   static constexpr bool B_CONTIG_T = true;
@@ -134,10 +145,10 @@ struct DxPolicy {
   static constexpr bool B_MAPPED = true;
   static constexpr ZeroSide ZERO = kZeroCols;   // unless compact_out
   __host__ __device__ static bool scattered(const Args& p) { return !p.flag; }
-  __device__ static long a_off(const Args& p, int i, int t) {
+  __device__ static long a_off(const Args& p, int i, long t) {
     return (long)i * p.lda + t;
   }
-  __device__ static long b_off(const Args& p, int t, int j) {
+  __device__ static long b_off(const Args& p, long t, int j) {
     return mapped(p, j) * p.ldb + t;
   }
   __device__ static long c_off(const Args& p, int i, int j) {
@@ -146,7 +157,7 @@ struct DxPolicy {
 };
 
 // #9: A(i, t) = x[t, col(i)]; B = dy [T=M, J=N]; out row(i) of [nb*B, N].
-struct DwPolicy {
+struct DwPolicy : PolicyBase {
   static constexpr const char* kName = "DwPolicy";
   static constexpr bool A_CONTIG_T = false;
   static constexpr bool B_CONTIG_T = false;
@@ -154,10 +165,10 @@ struct DwPolicy {
   static constexpr bool B_MAPPED = false;
   static constexpr ZeroSide ZERO = kZeroRows;
   __host__ __device__ static bool scattered(const Args&) { return true; }
-  __device__ static long a_off(const Args& p, int i, int t) {
+  __device__ static long a_off(const Args& p, int i, long t) {
     return (long)t * p.lda + (p.flag ? (long)i : mapped(p, i));
   }
-  __device__ static long b_off(const Args& p, int t, int j) {
+  __device__ static long b_off(const Args& p, long t, int j) {
     return (long)t * p.ldb + j;
   }
   __device__ static long c_off(const Args& p, int i, int j) {
@@ -166,7 +177,7 @@ struct DwPolicy {
 };
 
 // #10: A = x [M, K]; B(t, j) = w[t, col(j)]; out compact [M, kb*B].
-struct OpPolicy {
+struct OpPolicy : PolicyBase {
   static constexpr const char* kName = "OpPolicy";
   static constexpr bool A_CONTIG_T = true;
   static constexpr bool B_CONTIG_T = false;
@@ -174,25 +185,56 @@ struct OpPolicy {
   static constexpr bool B_MAPPED = true;
   static constexpr ZeroSide ZERO = kZeroNone;
   __host__ __device__ static bool scattered(const Args&) { return false; }
-  __device__ static long a_off(const Args& p, int i, int t) {
+  __device__ static long a_off(const Args& p, int i, long t) {
     return (long)i * p.lda + t;
   }
-  __device__ static long b_off(const Args& p, int t, int j) {
+  __device__ static long b_off(const Args& p, long t, int j) {
     return (long)t * p.ldb + mapped(p, j);
   }
   // the output is compact and contiguous: reduce_splits_kernel writes it
 };
 
 // #11: A = dyc [M, kb*B]; B(t, j) = w[j, col(t)]; out dense [M, K].
-struct OpDxPolicy {
+struct OpDxPolicy : PolicyBase {
   static constexpr const char* kName = "OpDxPolicy";
   static constexpr bool A_CONTIG_T = true;
   static constexpr bool B_CONTIG_T = true;
-  __device__ static long a_off(const Args& p, int i, int t) {
+  static constexpr bool A_MAPPED = false;
+  static constexpr bool B_MAPPED = false;
+  static constexpr ZeroSide ZERO = kZeroNone;
+  static constexpr bool DIRECT = true;
+  __host__ __device__ static bool scattered(const Args&) { return false; }
+  __host__ __device__ static bool b_tmap(const Args&) { return true; }
+  __device__ static long a_off(const Args& p, int i, long t) {
     return (long)i * p.lda + t;
   }
-  __device__ static long b_off(const Args& p, int t, int j) {
-    return (long)j * p.ldb + mapped(p, t);
+  __device__ static long b_off(const Args& p, long t, int j) {
+    return (long)j * p.ldb + t;
+  }
+  __device__ static long c_off(const Args& p, int i, int j) {
+    return (long)i * p.ldc + j;
+  }
+};
+
+// #2 above the decode kernel's rows: A(i, t) = x[i, col(t)] (x [M, K];
+// with x_compact x [M, kb*B], slot k = block k, not mapped); B(t, j) =
+// w[row(t), j] (w [K, N]); out dense [M, N].
+struct BpmPolicy : PolicyBase {
+  static constexpr const char* kName = "BpmPolicy";
+  static constexpr bool A_CONTIG_T = true;
+  static constexpr bool B_CONTIG_T = false;
+  static constexpr bool A_MAPPED = false;
+  static constexpr bool B_MAPPED = false;
+  static constexpr ZeroSide ZERO = kZeroNone;
+  static constexpr bool DIRECT = true;
+  __host__ __device__ static bool scattered(const Args&) { return false; }
+  __host__ __device__ static bool a_tmap(const Args& p) { return !p.flag; }
+  __host__ __device__ static bool b_tmap(const Args&) { return true; }
+  __device__ static long a_off(const Args& p, int i, long t) {
+    return (long)i * p.lda + t;
+  }
+  __device__ static long b_off(const Args& p, long t, int j) {
+    return t * p.ldb + j;
   }
   __device__ static long c_off(const Args& p, int i, int j) {
     return (long)i * p.ldc + j;
@@ -200,7 +242,7 @@ struct OpDxPolicy {
 };
 
 // #12: A(i, t) = x[t, i]; B = dyc [T=M, kb*B]; out column col(j) of [K, nb*B].
-struct OpDwPolicy {
+struct OpDwPolicy : PolicyBase {
   static constexpr const char* kName = "OpDwPolicy";
   static constexpr bool A_CONTIG_T = false;
   static constexpr bool B_CONTIG_T = false;
@@ -208,10 +250,10 @@ struct OpDwPolicy {
   static constexpr bool B_MAPPED = false;
   static constexpr ZeroSide ZERO = kZeroCols;
   __host__ __device__ static bool scattered(const Args&) { return true; }
-  __device__ static long a_off(const Args& p, int i, int t) {
+  __device__ static long a_off(const Args& p, int i, long t) {
     return (long)t * p.lda + i;
   }
-  __device__ static long b_off(const Args& p, int t, int j) {
+  __device__ static long b_off(const Args& p, long t, int j) {
     return (long)t * p.ldb + j;
   }
   __device__ static long c_off(const Args& p, int i, int j) {
@@ -219,78 +261,8 @@ struct OpDwPolicy {
   }
 };
 
-template <typename Policy, typename T>
-__global__ void __launch_bounds__(kThreads)
-pruned_gemm_kernel(Args p) {
-  __shared__ float As[kDepth][kTile + 1];  // As[t][i]
-  __shared__ float Bs[kDepth][kTile + 1];  // Bs[t][j]
-  const T* __restrict__ a = static_cast<const T*>(p.a);
-  const T* __restrict__ b = static_cast<const T*>(p.b);
-  T* __restrict__ c = static_cast<T*>(p.c);
-  const int i0 = blockIdx.y * kTile;
-  const int j0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-
-  float acc[kMicro][kMicro];
-#pragma unroll
-  for (int r = 0; r < kMicro; ++r)
-#pragma unroll
-    for (int s = 0; s < kMicro; ++s) acc[r][s] = 0.f;
-
-  // a tile wholly inside the pruned region only writes zeros
-  const bool compute = i0 < p.I_kept && j0 < p.J_kept;
-  if (compute) {
-    for (int t0 = 0; t0 < p.T; t0 += kDepth) {
-      __syncthreads();  // the previous stage's reads are done
-      for (int e = tid; e < kTile * kDepth; e += kThreads) {
-        int ii, tt;
-        if (Policy::A_CONTIG_T) { ii = e / kDepth; tt = e % kDepth; }
-        else                    { tt = e / kTile;  ii = e % kTile; }
-        const int i = i0 + ii, t = t0 + tt;
-        As[tt][ii] = (i < p.I_kept && t < p.T)
-                         ? to_f(a[Policy::a_off(p, i, t)]) : 0.f;
-      }
-      for (int e = tid; e < kTile * kDepth; e += kThreads) {
-        int jj, tt;
-        if (Policy::B_CONTIG_T) { jj = e / kDepth; tt = e % kDepth; }
-        else                    { tt = e / kTile;  jj = e % kTile; }
-        const int j = j0 + jj, t = t0 + tt;
-        Bs[tt][jj] = (j < p.J_kept && t < p.T)
-                         ? to_f(b[Policy::b_off(p, t, j)]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int tt = 0; tt < kDepth; ++tt) {
-        float av[kMicro], bv[kMicro];
-#pragma unroll
-        for (int r = 0; r < kMicro; ++r) av[r] = As[tt][ty + 16 * r];
-#pragma unroll
-        for (int s = 0; s < kMicro; ++s) bv[s] = Bs[tt][tx + 16 * s];
-#pragma unroll
-        for (int r = 0; r < kMicro; ++r)
-#pragma unroll
-          for (int s = 0; s < kMicro; ++s) acc[r][s] += av[r] * bv[s];
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kMicro; ++r) {
-    const int i = i0 + ty + 16 * r;
-    if (i >= p.I) continue;
-#pragma unroll
-    for (int s = 0; s < kMicro; ++s) {
-      const int j = j0 + tx + 16 * s;
-      if (j >= p.J) continue;
-      const bool kept = i < p.I_kept && j < p.J_kept;
-      c[Policy::c_off(p, i, j)] = from_f<T>(kept ? acc[r][s] : 0.f);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The tensor-core core (#8, #9, #10, #12): split contraction, cp.async
-// ring, mma.sync
+// The tensor-core core: split contraction, cp.async ring, mma.sync
 // ---------------------------------------------------------------------------
 
 constexpr int kTcRows = 64;      // output tile: rows
@@ -340,33 +312,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// x = hi + lo exactly: hi keeps the top 10 bits of x's mantissa (a TF32
-// value), lo is the remainder, which the tensor core reads as TF32 by
-// dropping its own low 13 bits. hi*hi + hi*lo + lo*hi then misses x's
-// products by about 2^-20 relative: f32's accuracy, not TF32's 2^-10.
-// A mask and a subtraction, not cvt.rna (a slow conversion pipe).
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
-                                           unsigned& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const unsigned* a,
-                                         const unsigned* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
-                                         const unsigned* b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Four 8 x 8 matrices of 16-bit elements (rows of 16 bytes) from shared
@@ -496,9 +441,20 @@ __device__ __forceinline__ void tc_stage(float (&acc)[2][4][4], const T* As,
   }
 }
 
+// Two neighbouring output elements in one store (8 bytes in f32, 4 in
+// bf16); the caller checks the alignment.
+__device__ __forceinline__ void store2(float* dst, float v0, float v1) {
+  *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float v0,
+                                       float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+}
+
 // Block (x, y, z): output tile (y, x) of the kept region [I_kept, J_kept],
 // contraction stages [z * steps_per_split, ...) -> f32 partials
-// partial[z][i][j] of that region, summed by a second launch. With a
+// partial[z][i][j] of that region, summed by a second launch (with one
+// range of a DIRECT policy, the output itself). With a
 // scattered output, blocks past the kept tiles (along x for zero columns,
 // along y for zero rows) write the pruned region's zeros while the
 // product runs.
@@ -580,39 +536,52 @@ pruned_gemm_tc_kernel(Args p, float* __restrict__ partial,
   const long b_col = (!Policy::B_CONTIG_T && j0 + cc < p.J_kept)
                          ? Policy::b_off(p, 0, j0 + cc) : -1;
 
+  // the stored position of contraction index t < T of an operand whose t
+  // runs through the block map (`tmap`), else t itself
+  auto pos = [&](int t, bool tmap) -> long {
+    return tmap ? mapped(p, t) : (long)t;
+  };
+  // This thread's copies of a tile contiguous along t all start at t0 + tc:
+  // one stored position per stage (with a mapped t the vector path needs
+  // whole copies per block, so a copy stays inside one block)
   auto load_rows = [&](const T* src, const long* row, int copies, T* tile,
-                       int t0, bool vec) {
+                       int t0, bool vec, bool tmap) {
+    const int t = t0 + tc;
+    const long tp = (vec && t < p.T) ? pos(t, tmap) : 0;
 #pragma unroll
     for (int r = 0; r < copies; ++r) {
       const int rr = (tid + r * kTcThreads) / kRowChunks;
       T* dst = tile + rr * L::kLdT + tc;
-      const int t = t0 + tc;
       if (vec) {
         const bool ok = row[r] >= 0 && t < p.T;
-        cp_async16(dst, ok ? src + row[r] + t : src, ok);
+        cp_async16(dst, ok ? src + row[r] + tp : src, ok);
       } else {
 #pragma unroll
         for (int e = 0; e < V; ++e)
-          dst[e] = (row[r] >= 0 && t + e < p.T) ? src[row[r] + t + e] : zero;
+          dst[e] = (row[r] >= 0 && t + e < p.T)
+                       ? src[row[r] + pos(t + e, tmap)] : zero;
       }
     }
   };
   // rows t of a [kTcDepth][ld] tile, columns [c0 + cc, + V) of this
-  // thread; `off(t, c)` is the element offset of the element-wise path
+  // thread; `off(tp, c)` is the element offset of the element-wise path
+  // at stored position tp
   auto load_cols = [&](const T* src, long col, int ld_src, int ld, int c0,
-                       int c_end, T* tile, int t0, bool vec, auto off) {
+                       int c_end, T* tile, int t0, bool vec, bool tmap,
+                       auto off) {
 #pragma unroll
     for (int r = 0; r < kColCopies; ++r) {
       const int tt = tr + r * kColRows, t = t0 + tt;
       T* dst = tile + tt * ld + cc;
+      const long tp = t < p.T ? pos(t, tmap) : 0;
       if (vec) {
         const bool ok = col >= 0 && t < p.T;
-        cp_async16(dst, ok ? src + (long)t * ld_src + col : src, ok);
+        cp_async16(dst, ok ? src + tp * ld_src + col : src, ok);
       } else {
 #pragma unroll
         for (int e = 0; e < V; ++e) {
           const int c = c0 + cc + e;
-          dst[e] = (c < c_end && t < p.T) ? src[off(t, c)] : zero;
+          dst[e] = (c < c_end && t < p.T) ? src[off(tp, c)] : zero;
         }
       }
     }
@@ -622,15 +591,17 @@ pruned_gemm_tc_kernel(Args p, float* __restrict__ partial,
     T* As = sm + slot * L::kStage;
     T* Bs = As + L::kA;
     if constexpr (Policy::A_CONTIG_T)
-      load_rows(a, a_row, kACopies, As, t0, p.a_vec);
+      load_rows(a, a_row, kACopies, As, t0, p.a_vec, Policy::a_tmap(p));
     else
       load_cols(a, a_col, p.lda, L::kLdI, i0, p.I_kept, As, t0, p.a_vec,
-                [&](int t, int i) { return Policy::a_off(p, i, t); });
+                Policy::a_tmap(p),
+                [&](long tp, int i) { return Policy::a_off(p, i, tp); });
     if constexpr (Policy::B_CONTIG_T)
-      load_rows(b, b_row, kBCopies, Bs, t0, p.b_vec);
+      load_rows(b, b_row, kBCopies, Bs, t0, p.b_vec, Policy::b_tmap(p));
     else
       load_cols(b, b_col, p.ldb, L::kLdJ, j0, p.J_kept, Bs, t0, p.b_vec,
-                [&](int t, int j) { return Policy::b_off(p, t, j); });
+                Policy::b_tmap(p),
+                [&](long tp, int j) { return Policy::b_off(p, tp, j); });
   };
 
   float acc[2][4][4];
@@ -659,6 +630,37 @@ pruned_gemm_tc_kernel(Args p, float* __restrict__ partial,
   }
   cp_async_wait<0>();
 
+  // one range of a DIRECT policy: the output itself, through c_off (rows
+  // contiguous along j); otherwise this range's f32 partial of the kept
+  // region, summed by the second launch
+  if constexpr (Policy::DIRECT) {
+    if (gridDim.z == 1) {
+      T* c = static_cast<T*>(p.c);
+      const bool pairs =
+          (p.ldc & 1) == 0 &&
+          ((unsigned long long)p.c & (2 * sizeof(T) - 1)) == 0;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = i0 + wm * 32 + mt * 16 + g + 8 * h;
+          if (i >= p.I_kept) continue;
+          T* row = c + Policy::c_off(p, i, 0);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int j = j0 + wn * 32 + nt * 8 + 2 * tg;
+            const float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
+            if (pairs && j + 1 < p.J_kept) {
+              store2(row + j, v0, v1);
+            } else {
+              if (j < p.J_kept) row[j] = from_f<T>(v0);
+              if (j + 1 < p.J_kept) row[j + 1] = from_f<T>(v1);
+            }
+          }
+        }
+      return;
+    }
+  }
   float* out = partial + (long)blockIdx.z * p.I_kept * p.J_kept;
   const bool pairs = (p.J_kept & 1) == 0;
 #pragma unroll
@@ -703,8 +705,9 @@ static inline int tc_steps_per_split(const Args& p, int splits) {
   return (steps + splits - 1) / splits;
 }
 
-// The two launches of a call (the split products, then the sum of the
-// splits); returns the count, 0 for shapes it refuses.
+// The launches of a call (the split products, then the sum of the splits;
+// the products alone for one range of a DIRECT policy); returns the
+// count, 0 for shapes it refuses.
 template <typename Policy>
 int tc_config(const Args& p, int splits, int dtype, LaunchRec* r,
               bool names) {
@@ -729,6 +732,7 @@ int tc_config(const Args& p, int splits, int dtype, LaunchRec* r,
                   used),
              kTcThreads, tc_smem_bytes<Policy>(dtype),
              "pruned_gemm_tc_kernel<%s,%s>", Policy::kName, dt_name(dtype));
+  if (Policy::DIRECT && used == 1) return 1;
   // one thread per element of the kept region (the whole output when it
   // is compact)
   const dim3 sum_grid((unsigned)(((long)p.I_kept * p.J_kept + 255) / 256));
@@ -749,19 +753,20 @@ static inline bool aligned16(const void* q) {
 template <typename Policy, typename T>
 int tc_launch_t(Args p, float* partial, int splits, cudaStream_t st) {
   LaunchRec r[kMaxLaunches];
-  if (tc_config<Policy>(p, splits, dtype_of<T>(), r, false) != 2 ||
-      r[0].grid[1] > 65535 || r[0].grid[2] > 65535)
+  const int n = tc_config<Policy>(p, splits, dtype_of<T>(), r, false);
+  if (n == 0 || r[0].grid[1] > 65535 || r[0].grid[2] > 65535)
     return (int)cudaErrorInvalidValue;
   constexpr int V = TcLayout<Policy, T>::kVec;
-  // whole 16-byte copies: along t, the contraction's rows; along i or j,
-  // the kept edge and, through a block map, the block
+  // whole 16-byte copies: along t, the contraction's rows and, through a
+  // block map, the block; along i or j, the kept edge and, through a
+  // block map, the block
   p.a_vec = aligned16(p.a) && p.lda % V == 0 &&
             (Policy::A_CONTIG_T
-                 ? p.T % V == 0
+                 ? p.T % V == 0 && (!Policy::a_tmap(p) || p.blk % V == 0)
                  : p.I_kept % V == 0 && (!Policy::A_MAPPED || p.blk % V == 0));
   p.b_vec = aligned16(p.b) && p.ldb % V == 0 &&
             (Policy::B_CONTIG_T
-                 ? p.T % V == 0
+                 ? p.T % V == 0 && (!Policy::b_tmap(p) || p.blk % V == 0)
                  : p.J_kept % V == 0 && (!Policy::B_MAPPED || p.blk % V == 0));
   // zero stores run along j: inside one row (zero rows) or one block
   p.c_vec = aligned16(p.c) && p.ldc % V == 0 &&
@@ -773,7 +778,7 @@ int tc_launch_t(Args p, float* partial, int splits, cudaStream_t st) {
                                      st>>>(p, partial,
                                            tc_steps_per_split(p, splits));
   e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess || n == 1) return (int)e;
   if constexpr (Policy::ZERO != kZeroNone) {
     if (Policy::scattered(p)) {
       reduce_splits_scatter_kernel<Policy, T>
@@ -795,37 +800,7 @@ int tc_launch(const Args& p, float* partial, int splits, int dtype,
   return (int)cudaErrorInvalidValue;
 }
 
-// ---------------------------------------------------------------------------
-// The CUDA-core core (#11)
-// ---------------------------------------------------------------------------
-
-// The one launch of a call; returns the count, 0 for shapes it refuses.
-int config(const Args& p, const char* policy, int dtype, LaunchRec* r,
-           bool names) {
-  if (p.I <= 0 || p.J <= 0 || p.T <= 0 || p.blk < 1) return 0;
-  set_launch(&r[0], names,
-             dim3((p.J + kTile - 1) / kTile, (p.I + kTile - 1) / kTile),
-             kThreads, 0, "pruned_gemm_kernel<%s,%s>", policy, dt_name(dtype));
-  return 1;
-}
-
-template <typename Policy>
-int launch(const Args& p, int dtype, cudaStream_t st) {
-  LaunchRec r[kMaxLaunches];
-  if (config(p, Policy::kName, dtype, r, false) != 1 ||
-      r[0].grid[1] > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == DT_F32)
-    pruned_gemm_kernel<Policy, float><<<grid_of(r[0]), r[0].threads, 0, st>>>(p);
-  else if (dtype == DT_BF16)
-    pruned_gemm_kernel<Policy, __nv_bfloat16>
-        <<<grid_of(r[0]), r[0].threads, 0, st>>>(p);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
-}
-
-// The operands of each of the five products (pointers null for a config).
+// The operands of each of the six products (pointers null for a config).
 Args dx_args(const void* dy, const void* w, const int* order, void* dx,
              int M, int N, int nb, int kb, int block, int compact_out) {
   const int nslots = compact_out ? kb : nb;
@@ -850,6 +825,12 @@ Args opdx_args(const void* dyc, const void* w, const int* keep, void* dx,
                int M, int K, int H, int kb, int block) {
   return Args{dyc, w, dx, keep, M, K, kb * block, M, K, block,
               kb * block, H, K, 0};
+}
+
+Args bpm_args(const void* x, const void* w, const int* keep, void* y, int M,
+              int K, int N, int kb, int block, int x_compact) {
+  return Args{x, w, y, keep, M, N, kb * block, M, N, block,
+              x_compact ? kb * block : K, N, N, x_compact};
 }
 
 Args opdw_args(const void* x, const void* dyc, const int* order, void* dw,
@@ -923,19 +904,44 @@ extern "C" int repro_outpruned_matmul_launch_config(
                              splits, dtype, r, true);
 }
 
-// #11. dyc [M, kb*B], w [K, H], keep [kb] -> dx [M, K].
+// #11. dyc [M, kb*B], w [K, H], keep [kb] -> dx [M, K]; partial f32
+// scratch of at least splits * M * K (unused with one range).
 extern "C" int repro_outpruned_matmul_dx(
-    const void* dyc, const void* w, const int* keep, void* dx, int M, int K,
-    int H, int kb, int block, int dtype, void* stream) {
-  return launch<OpDxPolicy>(opdx_args(dyc, w, keep, dx, M, K, H, kb, block),
-                            dtype, static_cast<cudaStream_t>(stream));
+    const void* dyc, const void* w, const int* keep, float* partial,
+    void* dx, int M, int K, int H, int kb, int block, int splits, int dtype,
+    void* stream) {
+  return tc_launch<OpDxPolicy>(
+      opdx_args(dyc, w, keep, dx, M, K, H, kb, block), partial, splits,
+      dtype, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int repro_outpruned_matmul_dx_launch_config(
-    int M, int K, int H, int kb, int block, int dtype, LaunchRec* r) {
-  return config(opdx_args(nullptr, nullptr, nullptr, nullptr, M, K, H, kb,
-                          block),
-                OpDxPolicy::kName, dtype, r, true);
+    int M, int K, int H, int kb, int block, int splits, int dtype,
+    LaunchRec* r) {
+  return tc_config<OpDxPolicy>(opdx_args(nullptr, nullptr, nullptr, nullptr,
+                                         M, K, H, kb, block),
+                               splits, dtype, r, true);
+}
+
+// #2 on the tensor cores (the rows above the decode kernel's, see
+// block_pruned_matmul.cu). x [M, K] (or [M, kb*B] with x_compact), w
+// [K, N], keep [kb] -> y [M, N]; partial f32 scratch of at least
+// splits * M * N (unused with one range).
+extern "C" int repro_block_pruned_matmul_tc(
+    const void* x, const void* w, const int* keep, float* partial, void* y,
+    int M, int K, int N, int kb, int block, int x_compact, int splits,
+    int dtype, void* stream) {
+  return tc_launch<BpmPolicy>(
+      bpm_args(x, w, keep, y, M, K, N, kb, block, x_compact), partial,
+      splits, dtype, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int repro_block_pruned_matmul_tc_launch_config(
+    int M, int K, int N, int kb, int block, int x_compact, int splits,
+    int dtype, LaunchRec* r) {
+  return tc_config<BpmPolicy>(bpm_args(nullptr, nullptr, nullptr, nullptr, M,
+                                       K, N, kb, block, x_compact),
+                              splits, dtype, r, true);
 }
 
 // #12. x [M, K], dyc [M, kb*B], order [nb] -> dw [K, nb*B]; partial f32

@@ -1,21 +1,30 @@
-"""Device time of the backward family's kernels (#8-#12) at the shapes the
-ViT-1B train run gives them (tp 4, 520 rows, block 8, float32 and
-bfloat16; the keep counts of its straggler, as ``chip_smoke.py`` phase 6
-times them), for an A/B of two checkouts on one card. It calls only the
-public wrappers, so the same file times any checkout of the port:
+"""Device time of the block-pruned products at the shapes of the port's
+main paths, for an A/B of two checkouts on one card: the backward family
+(#8-#12) and #2 at the ViT-1B train run's shapes (tp 4, 520 rows, block 8,
+the keep counts of its straggler, as ``chip_smoke.py`` phase 6 times
+them), and #2 at the Yi-6B decode shapes (8 slots, block 128: `wq`,
+`wk`, the FFN's down product with x_compact), each in float32 and
+bfloat16. It calls only the wrappers that every checkout of the port has,
+so the same file times any of them:
 
     PYTHONPATH=<checkout>/src python <this file>
-    PYTHONPATH=src python <this file> --sweep     # #9 and #12's splits
+    PYTHONPATH=src python <this file> --sweep       # #9 and #12's splits
+    PYTHONPATH=src python <this file> --bpm-sweep   # #2's route by rows
+    PYTHONPATH=src python <this file> --only wq     # cases naming "wq"
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 per case: the device time per call (the profiler's kernel time, inputs
 rotated past the 50 MB L2) and its share by ``__global__`` function; the
 host time per call (50 calls enqueued without a synchronise); and the
 device time of one ``torch.matmul`` on the gathered operands, the
-yardstick ``chip_smoke.py`` times with CUDA events. ``--sweep``
-times #9 and #12 instead at each split count of their contraction (the
-wrapper's own choice replaced, then rounded to whole ranges of stages
-as the wrapper does). Needs a CUDA device.
+yardstick ``chip_smoke.py`` times with CUDA events. ``--sweep`` times #9
+and #12 instead at each split count of their contraction (the wrapper's
+own choice replaced, then rounded to whole ranges of stages as the
+wrapper does). ``--bpm-sweep`` times #2 at M = 1, 8, 16, 32, 64, 128 and
+520 rows through each of its two kernels (the decode kernel and the
+tensor-core core, the route forced by ``ops.BPM_DECODE_MAX_ROWS``) at
+Yi-6B's `wq` and ViT-1B's `wq_r`: the sweep behind that threshold.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -35,7 +44,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("grad_timing: needs a CUDA device", file=sys.stderr)
         return 2
-    sweep = "--sweep" in (sys.argv[1:] if argv is None else argv)
+    args = sys.argv[1:] if argv is None else argv
+    sweep = "--sweep" in args
+    bpm_sweep = "--bpm-sweep" in args
+    only = args[args.index("--only") + 1] if "--only" in args else None
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
@@ -89,8 +101,9 @@ def main(argv=None) -> int:
             x.shape[0], -1)
 
     def cases(dtype):
-        """(kernel, case, make, call, library) at the train shapes; make
-        returns a tuple of operands, the gathered ones last."""
+        """(kernel, case, make, call, library) at the train shapes, and
+        #2 at the decode shapes; make returns a tuple of operands, the
+        gathered ones last."""
         def rnd(*shape, scale=1.0):
             return (torch.randn(shape, generator=gen, device=dev)
                     * scale).to(dtype)
@@ -146,13 +159,88 @@ def main(argv=None) -> int:
                                                block=B),
              lambda s: torch.matmul(s[2], s[1])),
         ]
+        # #2: the ViT-1B train shapes, then Yi-6B decode at 8 slots (names
+        # of their own: the FFN cases above read nb, kb and keep late)
+        for wname, K2, N2, blk, nb2, kb2, xc, rows_ in (
+                ("wq_r", D, ATT, B, D // B, 32, False, M),
+                ("wo_r", ATT, D, B, ATT // B, 8, False, M),
+                ("FFN down", FF, D, B, FF // B, 30, True, M),
+                ("Yi wq", 4096, 4096, 128, 32, 28, False, 8),
+                ("Yi wq", 4096, 4096, 128, 32, 4, False, 8),
+                ("Yi wk", 4096, 512, 128, 32, 28, False, 8),
+                ("Yi FFN down", 11008, 4096, 128, 86, 75, True, 8)):
+            keep2 = keep_of(nb2, kb2, 17 + kb2)
+            out.append((
+                "block_pruned_matmul",
+                f"{wname} x[{rows_},{kb2 * blk if xc else K2}] @ "
+                f"w[{K2},{N2}] keep {kb2}/{nb2}" + (" x_compact" if xc
+                                                     else ""),
+                lambda rows_=rows_, K=K2, N=N2, blk=blk, kb=kb2, xc=xc,
+                keep=keep2: (
+                    x := rnd(rows_, kb * blk if xc else K),
+                    w := rnd(K, N, scale=0.02),
+                    x if xc else x.reshape(rows_, -1, blk)[
+                        :, keep.long()].reshape(rows_, -1),
+                    w.reshape(-1, blk, N)[keep.long()].reshape(-1, N)),
+                bpm_call(keep2, blk, xc, K2, dtype),
+                lambda s: torch.matmul(s[2], s[3])))
         return out
+
+    def bpm_call(keep, blk, xc, K, dtype):
+        """#2 through the public wrapper, or (x_compact, the FFN's down
+        product) through the launcher the FFN wrapper calls."""
+        code = 0 if dtype == torch.float32 else 1
+        if xc:
+            return lambda s: ops._launch_block_pruned(
+                s[0], s[1], keep, blk, code, x_compact=True, K=K)
+        return lambda s: ops.block_pruned_matmul(s[0], s[1], keep, block=blk)
+
+    if bpm_sweep:
+        if not hasattr(ops, "BPM_DECODE_MAX_ROWS"):
+            print("grad_timing: this checkout has one route for #2",
+                  file=sys.stderr)
+            return 2
+        limit = ops.BPM_DECODE_MAX_ROWS
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            for wname, K, N, blk, nb, kb in (
+                    ("Yi wq", 4096, 4096, 128, 32, 28),
+                    ("ViT wq_r", D, ATT, B, D // B, 32)):
+                keep = keep_of(nb, kb, 19)
+                for rows_ in (1, 8, 16, 32, 64, 128, 520):
+                    n_sets = max(1, min(32, int(200e6 // (
+                        K * N * dtype.itemsize))))
+                    sets = [(torch.randn((rows_, K), generator=gen,
+                                         device=dev).to(dtype),
+                             (torch.randn((K, N), generator=gen, device=dev)
+                              * 0.02).to(dtype)) for _ in range(n_sets)]
+                    row = {}
+                    for route, rmax in (("decode", 1 << 30), ("tc", 0)):
+                        ops.BPM_DECODE_MAX_ROWS = rmax
+                        row[route] = device_ms(
+                            lambda i: ops.block_pruned_matmul(
+                                sets[i][0], sets[i][1], keep, block=blk),
+                            n_sets)[0]
+                    ops.BPM_DECODE_MAX_ROWS = limit
+                    print(json.dumps({
+                        "kernel": "block_pruned_matmul", "case":
+                        f"{wname} x[{rows_},{K}] @ w[{K},{N}] keep {kb}/{nb}",
+                        "dtype": dname, "rows": rows_,
+                        "decode_device_ms": row["decode"],
+                        "tc_device_ms": row["tc"],
+                        "route": "decode" if rows_ <= limit else "tc"}),
+                        flush=True)
+                    del sets
+                    torch.cuda.empty_cache()
+        return 0
 
     dw_partials = getattr(ops, "_dw_partials", None)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         for name, case, make, call, library in cases(dtype):
             if sweep and not name.endswith("_dw"):
+                continue
+            if only is not None and only not in f"{name} {case}":
                 continue
             first = make()
             n_sets = max(1, min(32, int(200e6 // sum(

@@ -17,7 +17,8 @@ Kernels (see each source's header for what bounds it on the H100), as
 wrapper: CUDA source (under ``csrc/``) <- the TPU kernel it replaces
 (under ``src/repro/kernels/``):
 
-* block_pruned_matmul: block_pruned_matmul.cu <-
+* block_pruned_matmul: block_pruned_matmul.cu up to BPM_DECODE_MAX_ROWS
+  rows, the tensor-core core of pruned_grad.cu above <-
   pruned_matmul.py:block_pruned_matmul_2d
 * fused_pruned_ffn: fused_pruned_ffn.cu (+ the block-pruned product) <-
   pruned_matmul.py:fused_ffn_2d
@@ -146,12 +147,16 @@ def _num_sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+def _device_sms(device) -> int:
+    return _num_sms(device.index if device.index is not None
+                    else torch.cuda.current_device())
+
+
 def _splits(limit: int, blocks_per_split_unit: int, device,
             per_sm: int = 4) -> int:
     """How many contraction ranges to spread across grid.z so that about
     ``per_sm`` blocks per SM are in flight (at most ``limit``)."""
-    target = per_sm * _num_sms(device.index if device.index is not None
-                               else torch.cuda.current_device())
+    target = per_sm * _device_sms(device)
     return max(1, min(limit, -(-target // max(blocks_per_split_unit, 1))))
 
 
@@ -201,21 +206,25 @@ def inverse_order(keep_idx: torch.Tensor, nb: int) -> torch.Tensor:
     return torch.cat([keep, pruned[: nb - keep.shape[0]].to(torch.int32)])
 
 
-# the tensor-core core of #8, #9, #10 and #12 (pruned_grad.cu): output
-# tile edge and contraction depth of one ring stage
+# the tensor-core core (pruned_grad.cu): output tile edge and contraction
+# depth of one ring stage
 TC_TILE, TC_DEPTH = 64, 32
 
 
-def _tc_partials(rows: int, cols: int, depth: int, device):
+def _tc_partials(rows: int, cols: int, depth: int, device,
+                 direct: bool = False):
     """The split count of the tensor-core core for a kept output of
     ``rows x cols`` over a contraction of ``depth`` (at most one range per
     stage; about two blocks per SM, which measured faster than four at
     the train shapes: fewer partials to sum), and its f32 partial buffer
-    [splits, rows, cols]."""
+    [splits, rows, cols]. ``direct``: the kernel's epilogue writes the
+    output itself when there is one range (#2, #11), and the buffer is
+    empty."""
     splits = _splits(-(-depth // TC_DEPTH),
                      -(-rows // TC_TILE) * -(-cols // TC_TILE), device,
                      per_sm=2)
-    return splits, torch.empty((splits, rows, cols), dtype=torch.float32,
+    n = 0 if direct and splits == 1 else splits
+    return splits, torch.empty((n, rows, cols), dtype=torch.float32,
                                device=device)
 
 
@@ -444,13 +453,14 @@ def outpruned_matmul_dx(dyc: torch.Tensor, w: torch.Tensor,
     dt, idx = _kernel_args(what, (dyc, w), keep_idx)
     M, (K, H) = dyc.shape[0], w.shape
     y = _out(out, (M, K), dyc)
+    splits, partial = _tc_partials(M, K, kb * block, dyc.device, direct=True)
     err = _build.library().lib.repro_outpruned_matmul_dx(
         dyc.contiguous().data_ptr(), w.contiguous().data_ptr(),
-        idx.data_ptr(), y.data_ptr(), M, K, H, kb, block, dt,
-        _stream(dyc.device))
+        idx.data_ptr(), partial.data_ptr(), y.data_ptr(), M, K, H, kb, block,
+        splits, dt, _stream(dyc.device))
     _build.check(err, what)
     _launched(outpruned_matmul_dx, ("repro_outpruned_matmul_dx", M, K, H, kb,
-                                    block, dt))
+                                    block, splits, dt))
     return y
 
 
@@ -516,25 +526,58 @@ def block_pruned_matmul_plain(x2d: torch.Tensor, w: torch.Tensor,
     return (xk.float() @ wk.float()).to(x2d.dtype)
 
 
+# #2's decode kernel (block_pruned_matmul.cu): output columns and slots
+# per block, contraction rows per chunk, warps per block, chunks in
+# flight per warp (its register ring in bf16; two turns of f32's)
+BPM_COLS, BPM_SLOTS, BPM_ROWS, BPM_WARPS, BPM_RING = 64, 8, 16, 8, 4
+# #2 runs the decode kernel up to this many rows of x and the tensor-core
+# core above them (the M sweep of grad_timing.py --bpm-sweep, PERF.md)
+BPM_DECODE_MAX_ROWS = 16
+
+
+def _bpm_decode_splits(M: int, N: int, depth: int, device) -> int:
+    """Contraction ranges of the decode kernel for y [M, N] over ``depth``
+    kept rows: as many as keep every block resident at once (two per SM,
+    one wave: a second one measured 20-30% slower) over the column and
+    slot tiles, with a full ring of chunks for every warp of a range."""
+    chunks = -(-depth // BPM_ROWS)
+    tiles = -(-N // BPM_COLS) * -(-M // BPM_SLOTS)
+    return max(1, min(chunks // (BPM_WARPS * BPM_RING),
+                      2 * _device_sms(device) // tiles))
+
+
 def _launch_block_pruned(x2d, w, keep, block, dt, *, x_compact=False,
-                         K=None):
-    """Run the CUDA kernel; ``x_compact`` reads x as [M, kb*block].
-    Returns the output and the launch's config key."""
+                         K=None, out=None):
+    """Run #2's kernel for x2d's rows: the decode kernel up to
+    BPM_DECODE_MAX_ROWS rows, the tensor-core core above; ``x_compact``
+    reads x as [M, kb*block]. Returns the output (``out`` when given)
+    and the launch's config key."""
     M = x2d.shape[0]
     N = w.shape[1]
     K = w.shape[0] if K is None else K
     kb = keep.shape[0]
+    dev = x2d.device
     lib = _build.library().lib
-    splits = _splits(kb, -(-N // 128) * -(-M // 8), x2d.device)
-    partial = torch.empty((splits, M, N), dtype=torch.float32,
-                          device=x2d.device)
-    y = torch.empty((M, N), dtype=x2d.dtype, device=x2d.device)
-    err = lib.repro_block_pruned_matmul(
-        x2d.data_ptr(), w.data_ptr(), keep.data_ptr(), partial.data_ptr(),
-        y.data_ptr(), M, K, N, kb, block, int(x_compact), splits, dt,
-        _stream(x2d.device))
+    y = _out(out, (M, N), x2d)
+    if M <= BPM_DECODE_MAX_ROWS:
+        splits = _bpm_decode_splits(M, N, kb * block, dev)
+        partial = torch.empty((splits if splits > 1 else 0, M, N),
+                              dtype=torch.float32, device=dev)
+        err = lib.repro_block_pruned_matmul(
+            x2d.data_ptr(), w.data_ptr(), keep.data_ptr(), partial.data_ptr(),
+            y.data_ptr(), M, K, N, kb, block, int(x_compact), splits, dt,
+            _stream(dev))
+        config = ("repro_block_pruned_matmul", M, N, kb, block, splits, dt)
+    else:
+        splits, partial = _tc_partials(M, N, kb * block, dev, direct=True)
+        err = lib.repro_block_pruned_matmul_tc(
+            x2d.data_ptr(), w.data_ptr(), keep.data_ptr(), partial.data_ptr(),
+            y.data_ptr(), M, K, N, kb, block, int(x_compact), splits, dt,
+            _stream(dev))
+        config = ("repro_block_pruned_matmul_tc", M, K, N, kb, block,
+                  int(x_compact), splits, dt)
     _build.check(err, "block_pruned_matmul")
-    return y, ("repro_block_pruned_matmul", M, N, kb, block, splits, dt)
+    return y, config
 
 
 class _BlockPrunedMatmul(torch.autograd.Function):

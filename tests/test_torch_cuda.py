@@ -495,7 +495,8 @@ def test_cuda_tc_pruned_matmul_dx_matches_plain(cuda_device, dtype,
 def test_cuda_tc_launch_configs_split_and_sum(cuda_device):
     """#10 and #8 report both launches, the split products on the
     tensor-core core and the ordered sum (the scatter pass where #8's
-    output is not compact); #9, #11, #12 keep the CUDA-core core."""
+    output is not compact); #11's one range is written by the epilogue of
+    the tensor-core core."""
     from repro_torch.kernels import build
 
     launches = []
@@ -518,7 +519,7 @@ def test_cuda_tc_launch_configs_split_and_sum(cuda_device):
                              "reduce_splits_kernel<float>"],
         "pruned_matmul_dx": ["pruned_gemm_tc_kernel<DxPolicy,float>",
                              "reduce_splits_scatter_kernel<DxPolicy,float>"],
-        "outpruned_matmul_dx": ["pruned_gemm_kernel<OpDxPolicy,float>"]}
+        "outpruned_matmul_dx": ["pruned_gemm_tc_kernel<OpDxPolicy,float>"]}
     (split, _), = [ls for name, ls in launches if name == "outpruned_matmul"]
     assert split.grid[:2] == (1, 9) and split.grid[2] > 1
     assert split.smem > 48 * 1024
@@ -659,3 +660,121 @@ def test_cuda_tc_dw_launch_configs(cuda_device):
     many = build.launch_config("repro_outpruned_matmul_dw", 70, 64, 16, 4, 6,
                                40, 0)
     assert many[0].grid == (1 + 1, 1, 3)
+
+
+# ---------------------------------------------------------------------------
+# #11 on the tensor-core core (its contraction read through the keep map)
+# and #2: the decode kernel up to BPM_DECODE_MAX_ROWS rows, the
+# tensor-core core above. M across the route, block 6 (copies that cross
+# a block), 8 and 128, odd widths, unaligned bases, unsorted keep lists,
+# x_compact, one range and many; outputs NaN-filled, a second call
+# bit-identical, launch names and counts
+# ---------------------------------------------------------------------------
+
+# name: (M, width, nb, kb, block, sorted keep, base offset in elements).
+# The width is K (dx's columns) for #11 and N (y's columns) for #2.
+_MAP_CASES = {
+    "m1_b128": (1, 512, 8, 5, 128, True, 0),
+    "m1_one_range": (1, 512, 8, 1, 128, True, 0),
+    "m7_b8_unsorted": (7, 96, 24, 7, 8, False, 0),
+    "m8_b128_unsorted": (8, 576, 6, 4, 128, False, 0),
+    "m8_odd_width_b6": (8, 97, 12, 5, 6, False, 0),
+    "m8_unaligned": (8, 128, 8, 3, 8, False, 1),
+    "m9_b8": (9, 64, 16, 9, 8, True, 0),
+    "m16_b128_unsorted": (16, 256, 4, 3, 128, False, 0),
+    "m33_unaligned": (33, 128, 8, 3, 8, False, 1),
+    "m64_b6": (64, 64, 12, 5, 6, False, 0),
+    "m65_odd_width": (65, 97, 10, 4, 8, False, 0),
+    "m520_train_b8": (520, 512, 256, 32, 8, True, 0),
+    "m520_one_range": (520, 2048, 256, 30, 8, True, 0),
+}
+
+
+def _map_keep(case, device):
+    import numpy as np
+    _, _, nb, kb, _, is_sorted, _ = _MAP_CASES[case]
+    keep = np.random.default_rng(sum(map(ord, case))).permutation(nb)[:kb]
+    if is_sorted:
+        keep = np.sort(keep)
+    return torch.tensor(keep, dtype=torch.int32, device=device)
+
+
+def _tname(dtype):
+    return "float" if dtype == torch.float32 else "__nv_bfloat16"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(_MAP_CASES))
+def test_cuda_tc_outpruned_matmul_dx_matches_plain(cuda_device, dtype, case):
+    import numpy as np
+    M, K, nb, kb, block, _, off = _MAP_CASES[case]
+    g = np.random.default_rng(len(case) + 4)
+    dyc = _tc_operand(g, (M, kb * block), dtype, cuda_device, off)
+    w = _tc_operand(g, (K, nb * block), dtype, cuda_device, off, 0.05)
+    keep = _map_keep(case, cuda_device)
+    launches = []
+    prev = tops.set_launch_hook(lambda name, ls: launches.append(ls))
+    try:
+        _tc_check(lambda out: tops.outpruned_matmul_dx(dyc, w, keep,
+                                                       block=block, out=out),
+                  tops.outpruned_matmul_dx_plain(dyc, w, keep, block),
+                  (M, K), dtype, cuda_device, tops.outpruned_matmul_dx)
+    finally:
+        tops.set_launch_hook(prev)
+    splits = tops._tc_partials(M, K, kb * block, cuda_device, direct=True)[0]
+    t = _tname(dtype)
+    want = [f"pruned_gemm_tc_kernel<OpDxPolicy,{t}>"] + (
+        [f"reduce_splits_kernel<{t}>"] if splits > 1 else [])
+    assert len(launches) == 2
+    assert all([ln.fn for ln in ls] == want for ls in launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_compact", [False, True])
+@pytest.mark.parametrize("case", sorted(_MAP_CASES))
+def test_cuda_block_pruned_matmul_routes_match_plain(cuda_device, dtype,
+                                                     x_compact, case):
+    import numpy as np
+    from repro_torch.kernels import build
+
+    M, N, nb, kb, block, _, off = _MAP_CASES[case]
+    K = nb * block
+    g = np.random.default_rng(len(case) + 5)
+    x = _tc_operand(g, (M, kb * block if x_compact else K), dtype,
+                    cuda_device, off)
+    w = _tc_operand(g, (K, N), dtype, cuda_device, off, 0.05)
+    keep = _map_keep(case, cuda_device)
+    if x_compact:
+        x_full = torch.zeros((M, nb, block), dtype=dtype, device=cuda_device)
+        x_full[:, keep.long()] = x.reshape(M, kb, block)
+        ref = tops.block_pruned_matmul_plain(x_full.reshape(M, K), w, keep,
+                                             block)
+    else:
+        ref = tops.block_pruned_matmul_plain(x, w, keep, block)
+    dt = 0 if dtype == torch.float32 else 1
+    got = []
+    for _ in range(2):
+        out = _nan((M, N), dtype, cuda_device)
+        y, config = tops._launch_block_pruned(x, w, keep, block, dt,
+                                              x_compact=x_compact, K=K,
+                                              out=out)
+        torch.cuda.synchronize()
+        assert y.data_ptr() == out.data_ptr()
+        assert bool(torch.isfinite(y.float()).all())
+        _close(y, ref, dtype)
+        got.append(y.clone())
+    assert torch.equal(got[0], got[1])
+    t = _tname(dtype)
+    names = [ln.fn for ln in build.launch_config(*config)]
+    product = (f"bpm_decode_kernel<{t}>" if M <= tops.BPM_DECODE_MAX_ROWS
+               else f"pruned_gemm_tc_kernel<BpmPolicy,{t}>")
+    assert names == [product] + (
+        [f"reduce_splits_kernel<{t}>"] if config[-2] > 1 else [])
+    if not x_compact:
+        before = tops.block_pruned_matmul.launches
+        y = tops.block_pruned_matmul(x, w, keep, block=block)
+        torch.cuda.synchronize()
+        assert tops.block_pruned_matmul.launches == before + 1
+        assert torch.equal(y, got[0])
