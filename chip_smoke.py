@@ -13,11 +13,12 @@ Phases, each printing one line of its own; any failure exits non-zero:
               at the shapes full-width Yi-6B and DeepSeek-V2-Lite serving
               with 8 slots give it, in float32 (max |err| <= 1e-4 * max
               |ref|) and bfloat16 (max |err| <= 2e-2 * max |ref|), plus
-              block 8 at a small shape; the paged and MLA decode
-              attentions (#4-#6) write into NaN-filled outputs and read
-              pools whose unreferenced pages are NaN (ragged positions,
-              one invalid lane, a shuffled page order, trailing -1
-              entries); each timed with CUDA events beside its plain
+              block 8 at a small shape; the decode attentions (#1, #4-#6)
+              write into NaN-filled outputs, #1 reading a cache whose
+              unattended rows are NaN and #4-#6 pools whose unreferenced
+              pages are NaN (ragged positions, one invalid lane, a
+              shuffled page order, trailing -1 entries), and #1 and #4
+              twice, for the same bits; each timed with CUDA events beside its plain
               version, a one-call PyTorch yardstick where one exists, and
               its bound at 3.35 TB/s and 989 (bf16) / 67 (f32) TFLOP/s
               (the tensor-core kernels' f32 also at 3xTF32's 495/3), the
@@ -50,6 +51,9 @@ Phases, each printing one line of its own; any failure exits non-zero:
               the device time by kernel family.
    paged-serve — the same run over the paged pool (page 16, 96 pages):
               it must preempt, and #2, #3, #4 must launch.
+   paged-profile — eight decode-only steps of the paged engine under
+              torch.profiler, as phase 5 (#4 on its main path; phase 5
+              must run #1's SlotRows form, this one #4's PagedRows form).
    mla-serve — the same traffic and control at full DeepSeek-V2-Lite
               width (27 layers, MLA + MoE, bf16), over the slot cache
               (#3, #5 must launch) and over a paged pool of 160 pages
@@ -132,7 +136,7 @@ SOURCES = {
     "outpruned_matmul_dx": _GRAD_CU,
     "outpruned_matmul_dw": _GRAD_CU,
     "fused_paged_decode_attention":
-        "src/repro_torch/kernels/csrc/gqa_paged_decode_attn.cu",
+        "src/repro_torch/kernels/csrc/gqa_decode_attn.cu",
     "fused_mla_decode_attention":
         "src/repro_torch/kernels/csrc/mla_decode_attn.cu",
     "fused_paged_mla_decode_attention":
@@ -435,6 +439,23 @@ def main():
             record("fused_pruned_ffn", f"block 8 smoke {tag} keep 40/64",
                    dtype, got, ref, {}, 0, 0, False)
 
+    def nan_out(shape, dtype):
+        return torch.full(shape, float("nan"), dtype=dtype, device=dev)
+
+    def written(got, out, name):
+        if got.data_ptr() != out.data_ptr():
+            raise SystemExit(f"{name}: the kernel did not write into `out`")
+        return got
+
+    def same_bits(outs, name):
+        """The first of two calls' outputs, after checking they agree bit
+        for bit (the merges sum in a fixed order)."""
+        torch.cuda.synchronize()
+        if not torch.equal(outs[0], outs[1]):
+            failures.append(f"{name}: two calls differ")
+            say("kernels", f"{name}: two calls differ (FAIL)")
+        return outs[0]
+
     # -- fused GQA decode attention -------------------------------------------
     Hq, Hkv, S, D = full.num_heads, full.num_kv_heads, 1024, 128
     cur_np = np.asarray([0, 127, 128, S - 1, 2 ** 30, 31, 500, 777], np.int32)
@@ -446,14 +467,24 @@ def main():
         ks = [rnd((B, Hkv, S, D), dtype) for _ in range(n_sets)]
         vs = [rnd((B, Hkv, S, D), dtype) for _ in range(n_sets)]
         for window in (0, 200):
-            got = ops.fused_decode_attention(qs[0], ks[0], vs[0], cur_pos=cur,
-                                             window=window)
-            ref = ops.gqa_decode_attn_plain(qs[0], ks[0], vs[0], cur, window)
             pos = torch.arange(S, device=dev)[None, :]
             mask = pos <= cur.long()[:, None]
             if window:
                 mask = mask & (pos > cur.long()[:, None] - window)
             mask = mask[:, None, None, :]
+            # the check reads caches whose unattended rows are NaN (the
+            # kernel must never read them) into NaN-filled outputs, twice
+            unread = ~mask[:, :, 0, :, None].expand_as(ks[0])
+            k_nan = ks[0].masked_fill(unread, float("nan"))
+            v_nan = vs[0].masked_fill(unread, float("nan"))
+            got = same_bits([written(ops.fused_decode_attention(
+                qs[0], k_nan, v_nan, cur_pos=cur, window=window, out=out),
+                out, "fused_decode_attention")
+                for out in (nan_out((B, Hq, 1, D), dtype),
+                            nan_out((B, Hq, 1, D), dtype))],
+                "fused_decode_attention")
+            ref = ops.gqa_decode_attn_plain(qs[0], ks[0], vs[0], cur, window)
+            del k_nan, v_nan, unread
 
             # the yardstick: SDPA with the position mask (K/V heads
             # expanded to the query heads outside the timing when this
@@ -598,14 +629,6 @@ def main():
         t[unref] = float("nan")
         return t
 
-    def nan_out(shape, dtype):
-        return torch.full(shape, float("nan"), dtype=dtype, device=dev)
-
-    def written(got, out, name):
-        if got.data_ptr() != out.data_ptr():
-            raise SystemExit(f"{name}: the kernel did not write into `out`")
-        return got
-
     def sdpa_yardstick(q4, k4, v4, mask4, scale=None):
         """SDPA on pre-gathered rows (heads of K/V broadcast to the query
         heads where this PyTorch has no enable_gqa), or None where SDPA
@@ -645,10 +668,12 @@ def main():
         kps = [nan_pool((N_PAGES, Hkv, PS, D), dtype) for _ in range(n_sets)]
         vps = [nan_pool((N_PAGES, Hkv, PS, D), dtype) for _ in range(n_sets)]
         for window in (0, 200):
-            out = nan_out((B, Hq, 1, D), dtype)
-            got = written(ops.fused_paged_decode_attention(
+            got = same_bits([written(ops.fused_paged_decode_attention(
                 qs[0], kps[0], vps[0], pages=pages, cur_pos=cur,
                 window=window, out=out), out, "fused_paged_decode_attention")
+                for out in (nan_out((B, Hq, 1, D), dtype),
+                            nan_out((B, Hq, 1, D), dtype))],
+                "fused_paged_decode_attention")
             ref = ops.gqa_paged_decode_attn_plain(qs[0], kps[0], vps[0],
                                                   pages, cur, window)
             ok_rows = ops.paged_attended_rows(pages, PS, N_PAGES, cur, window)
@@ -993,30 +1018,37 @@ def main():
     # ---------------------------------------------------------------- 5
     # where a decode step's time goes: 8 fresh requests on the same
     # engine, 8 decode-only steps under the profiler (device activity)
-    for i in range(8):
-        eng.submit(Request(uid=1000 + i, prompt=rng.integers(
-            0, VOCAB, (16,)).astype(np.int32), max_new_tokens=24,
-            arrival_step=eng.step_count))
-    for _ in range(4):                  # admit + prefill + first decodes
-        eng.step()
-    torch.cuda.synchronize()
     n_prof = 8
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_prof):
-            eng.step()
+
+    def decode_profile(e, vocab, uid0):
+        """Eight fresh requests on engine ``e``, four steps to admit and
+        prefill them, then n_prof decode-only steps under the profiler:
+        wall ms per step, device ms per step, [(kernel, calls, ms)]."""
+        for i in range(8):
+            e.submit(Request(uid=uid0 + i, prompt=rng.integers(
+                0, vocab, (16,)).astype(np.int32), max_new_tokens=24,
+                arrival_step=e.step_count))
+        for _ in range(4):              # admit + prefill + first decodes
+            e.step()
         torch.cuda.synchronize()
-        pwall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
-    rows = kernel_times(prof)
-    dev_step_ms = sum(r[2] for r in rows) / n_prof
+        with profile(activities=[ProfilerActivity.CUDA]) as prof_:
+            t0_ = time.perf_counter()
+            for _ in range(n_prof):
+                e.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0_) * 1e3 / n_prof
+        rows_ = kernel_times(prof_)
+        return wall_ms, sum(r[2] for r in rows_) / n_prof, rows_
 
     def family(name):
+        # #1 and #4 are one kernel: told apart by the row policy
+        if "gqa_decode" in name:
+            return ("fused_paged_decode_attention" if "PagedRows" in name
+                    else "fused_decode_attention")
         for key, fam in (("bpm_", "block-pruned products (proj + FFN down)"),
                          ("BpmPolicy",
                           "block-pruned products (proj + FFN down)"),
                          ("ffn_hidden", "fused_pruned_ffn hidden stage"),
-                         ("gqa_decode", "fused_decode_attention"),
-                         ("gqa_paged", "fused_paged_decode_attention"),
                          ("reduce_splits", "split reductions")):
             if key in name:
                 return fam
@@ -1025,23 +1057,43 @@ def main():
                                   "cublas")):
             return "library matmul (dense products, LM head)"
         return "elementwise / indexing / other"
-    fams = {}
-    for name, calls, ms in rows:
-        f = fams.setdefault(family(name), [0, 0.0])
-        f[0] += calls
-        f[1] += ms
+
+    def report(tag, what, wall_ms, dev_ms, rows_, fam_of):
+        """Wall and device time per step, the device time by family and
+        the eight largest kernels."""
+        fams_ = {}
+        for name, calls, ms in rows_:
+            f = fams_.setdefault(fam_of(name), [0, 0.0])
+            f[0] += calls
+            f[1] += ms
+        say(tag, f"{what}: wall {wall_ms:.2f} ms/step, device kernels "
+            f"{dev_ms:.2f} ms/step, device busy {dev_ms / wall_ms:.1%} "
+            f"(idle {1 - dev_ms / wall_ms:.1%})")
+        for fam, (calls, ms) in sorted(fams_.items(), key=lambda kv: -kv[1][1]):
+            say(tag, f"  {fam}: {ms / n_prof:.3f} ms/step, "
+                f"{calls / n_prof:.0f} kernels/step")
+        for name, calls, ms in rows_[:8]:
+            say(tag, f"  top: {ms / n_prof:.3f} ms/step, "
+                f"{calls / n_prof:.0f}/step  {name[:90]}")
+
+    def gqa_policy_check(tag, rows_, policy):
+        """The step ran the GQA kernel with this row policy, and no GQA
+        kernel without one (the two-file design is gone)."""
+        names = [name for name, _, _ in rows_]
+        bad = [n for n in names if "gqa_paged" in n or (
+            "gqa_decode" in n and "Rows" not in n)]
+        if bad or not any("gqa_decode_partial_kernel" in n and policy in n
+                          for n in names):
+            raise SystemExit(f"{tag}: no gqa_decode_partial_kernel<{policy}"
+                             f"...> in the step, or an old kernel: {bad}")
+
+    pwall_ms, dev_step_ms, rows = decode_profile(eng, VOCAB, 1000)
     if not any("bpm_decode_kernel" in name for name, _, _ in rows):
         raise SystemExit("profile: the decode step launched no "
                          "bpm_decode_kernel (#2 at 8 slots)")
-    say("profile", f"decode-only step, 8 active slots: wall {pwall_ms:.2f} "
-        f"ms/step, device kernels {dev_step_ms:.2f} ms/step, device busy "
-        f"{dev_step_ms / pwall_ms:.1%} (idle {1 - dev_step_ms / pwall_ms:.1%})")
-    for fam, (calls, ms) in sorted(fams.items(), key=lambda kv: -kv[1][1]):
-        say("profile", f"  {fam}: {ms / n_prof:.3f} ms/step, "
-            f"{calls / n_prof:.0f} kernels/step")
-    for name, calls, ms in rows[:8]:
-        say("profile", f"  top: {ms / n_prof:.3f} ms/step, {calls / n_prof:.0f}"
-            f"/step  {name[:90]}")
+    gqa_policy_check("profile", rows, "SlotRows")
+    report("profile", "decode-only step, 8 active slots", pwall_ms,
+           dev_step_ms, rows, family)
     yi_tokens = {c.uid: c.tokens.tolist() for c in comps}
 
     def free():
@@ -1125,6 +1177,14 @@ def main():
         "information only)")
     if problems:
         raise SystemExit(f"paged serve check failed: {problems}")
+
+    # ------------------------------------------------------ paged profile
+    # where a paged Yi-6B decode step's time goes (#4 on its main path):
+    # 8 fresh requests on the paged engine, 8 decode-only steps, as phase 5
+    gwall_ms, gdev_ms, grows = decode_profile(eng, VOCAB, 3000)
+    gqa_policy_check("paged-profile", grows, "PagedRows")
+    report("paged-profile", "yi-6b decode-only step (paged, page 16), 8 "
+           "active slots", gwall_ms, gdev_ms, grows, family)
     del eng
     free()
 
@@ -1161,41 +1221,14 @@ def main():
     # ------------------------------------------------------ MLA profile
     # where a DeepSeek decode step's time goes: 8 fresh requests on the
     # paged engine, 8 decode-only steps under the profiler
-    for i in range(8):
-        eng.submit(Request(uid=2000 + i, prompt=rng.integers(
-            0, ds_full.vocab_size, (16,)).astype(np.int32),
-            max_new_tokens=24, arrival_step=eng.step_count))
-    for _ in range(4):
-        eng.step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_prof):
-            eng.step()
-        torch.cuda.synchronize()
-        mwall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
-    mrows = kernel_times(prof)
-    mdev_ms = sum(r[2] for r in mrows) / n_prof
+    mwall_ms, mdev_ms, mrows = decode_profile(eng, ds_full.vocab_size, 2000)
 
     def mla_family(name):
         if "mla_partial" in name or "mla_merge" in name:
             return "fused_paged_mla_decode_attention (#6)"
         return family(name)
-    mfams = {}
-    for name, calls, ms in mrows:
-        f = mfams.setdefault(mla_family(name), [0, 0.0])
-        f[0] += calls
-        f[1] += ms
-    say("mla-profile", f"deepseek-v2-lite decode-only step (paged), 8 active "
-        f"slots: wall {mwall_ms:.2f} ms/step, device kernels {mdev_ms:.2f} "
-        f"ms/step, device busy {mdev_ms / mwall_ms:.1%} (idle "
-        f"{1 - mdev_ms / mwall_ms:.1%})")
-    for fam, (calls, ms) in sorted(mfams.items(), key=lambda kv: -kv[1][1]):
-        say("mla-profile", f"  {fam}: {ms / n_prof:.3f} ms/step, "
-            f"{calls / n_prof:.0f} kernels/step")
-    for name, calls, ms in mrows[:8]:
-        say("mla-profile", f"  top: {ms / n_prof:.3f} ms/step, "
-            f"{calls / n_prof:.0f}/step  {name[:90]}")
+    report("mla-profile", "deepseek-v2-lite decode-only step (paged), 8 "
+           "active slots", mwall_ms, mdev_ms, mrows, mla_family)
     del eng
     free()
 

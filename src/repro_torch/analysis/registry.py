@@ -30,9 +30,9 @@ REQUIRED_STEPS = ("train_step", "serve_decode_step", "serve_engine_step",
 #: the reference's registered steps the port does not have yet, with the
 #: ROADMAP.md item that brings each
 NOT_YET_PORTED = {
-    "prefill_step": "LM prefill, with LM training (ROADMAP.md, queue A.7)",
+    "prefill_step": "LM prefill, with LM training (ROADMAP.md, queue A.5)",
     "cluster_tick": "cluster/ over the torch ServeEngine (ROADMAP.md, "
-                    "queue A.7)",
+                    "queue A.4)",
 }
 
 

@@ -25,8 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("gqa_decode_attn.cu", "block_pruned_matmul.cu",
-           "fused_pruned_ffn.cu", "pruned_grad.cu",
-           "gqa_paged_decode_attn.cu", "mla_decode_attn.cu",
+           "fused_pruned_ffn.cu", "pruned_grad.cu", "mla_decode_attn.cu",
            "unfused_gqa_decode_attn.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -70,8 +69,8 @@ SIGNATURES = {
 # each launcher family's repro_<family>_launch_config: its integer
 # arguments, then a LaunchRec array it fills; returns the launch count
 CONFIG_SIGNATURES = {
-    "repro_gqa_decode_attn": 7,           # B, Hkv, G, D, Dv, splits, dtype
-    "repro_gqa_paged_decode_attn": 7,     # B, Hkv, G, D, Dv, splits, dtype
+    "repro_gqa_decode_attn": 7,           # B, Hkv, G, D, Dv, ranges, dtype
+    "repro_gqa_paged_decode_attn": 7,     # B, Hkv, G, D, Dv, ranges, dtype
     "repro_mla_decode_attn": 7,           # B, H, R, Dr, splits, paged, dtype
     "repro_block_pruned_matmul": 6,       # M, N, kb, block, splits, dtype
     "repro_block_pruned_matmul_tc": 8,    # M, K, N, kb, block, x_compact,

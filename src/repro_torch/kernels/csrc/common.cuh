@@ -117,6 +117,44 @@ __device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// 16-byte copies from device to shared memory that run while the warp
+// computes (pruned_grad.cu, gqa_decode_attn.cu): a copy with valid =
+// false reads nothing and zero-fills its 16 bytes (src-size 0).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four 8 x 8 matrices of 16-bit elements (rows of 16 bytes) from shared
+// memory; lane l gives the row address of matrix l / 8, row l % 8, and
+// gets in r[m] the pair at (row l / 4, columns 2 (l % 4), +1) of matrix
+// m. On f32 data a pair is one float: column l % 4 of a row of 4 floats.
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* row) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// The same, each matrix transposed: r[m] holds (rows 2 (l % 4), +1;
+// column l / 4).
+__device__ __forceinline__ void ldsm_x4_t(unsigned* r, const void* row) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
 // Ask for more than the default 48 KB of dynamic shared memory where a
 // launch needs it (up to the 227 KB a block can have on Hopper).
 template <typename K>

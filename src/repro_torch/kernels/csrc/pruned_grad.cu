@@ -298,41 +298,6 @@ int tc_smem_bytes(int dtype) {
                           : TcLayout<Policy, float>::kBytes;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Four 8 x 8 matrices of 16-bit elements (rows of 16 bytes) from shared
-// memory; lane l gives the row address of matrix l / 8, row l % 8, and
-// gets in r[m] the pair at (row l / 4, columns 2 (l % 4), +1) of matrix
-// m. On f32 data a pair is one float: column l % 4 of a row of 4 floats.
-__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* row) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(row);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// The same, each matrix transposed: r[m] holds (rows 2 (l % 4), +1;
-// column l / 4).
-__device__ __forceinline__ void ldsm_x4_t(unsigned* r, const void* row) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(row);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
 // One ring stage's products into the warp's 32 x 32 accumulator
 // acc[m16 tile][n8 tile][4], fragments in the mma layouts of the PTX ISA
 // (g = lane / 4 picks A's row and B's column, tg = lane % 4 the

@@ -22,10 +22,10 @@ wrapper: CUDA source (under ``csrc/``) <- the TPU kernel it replaces
   pruned_matmul.py:block_pruned_matmul_2d
 * fused_pruned_ffn: fused_pruned_ffn.cu (+ the block-pruned product) <-
   pruned_matmul.py:fused_ffn_2d
-* fused_decode_attention: gqa_decode_attn.cu <-
+* fused_decode_attention: gqa_decode_attn.cu (row policy SlotRows) <-
   decode_attn.py:gqa_decode_attn_2d
-* fused_paged_decode_attention: gqa_paged_decode_attn.cu (the design of
-  the one above, rows read through the page table) <-
+* fused_paged_decode_attention: gqa_decode_attn.cu (the same body, row
+  policy PagedRows: rows read through the page table) <-
   decode_attn.py:gqa_paged_decode_attn_2d
 * fused_mla_decode_attention: mla_decode_attn.cu <-
   decode_attn.py:mla_decode_attn_2d
@@ -812,6 +812,24 @@ def _decode_scratch(rows: int, width: int, device):
     return part_ml, part_acc
 
 
+#: cache rows per block of gqa_decode_attn.cu (kRows), counted from the
+#: tile that holds a slot's first attended row
+GQA_ROWS = 128
+
+
+def _gqa_partials(B: int, Hkv: int, G: int, length: int, Dv: int, device):
+    """Host side of the GQA decode kernels' grid (#1 over a slot cache of
+    ``length`` rows, #4 over a page table of ``length`` = pps * ps rows):
+    ``ranges`` = ceil(length / GQA_ROWS) blocks of rows per (slot, KV
+    head), enough for a slot that attends every row, and the f32 scratch
+    of one partial (m, l, acc) per (slot, head, range, query head). Shapes
+    only: which ranges hold rows is worked out from cur_pos on the
+    device, so nothing here reads a tensor."""
+    ranges = -(-length // GQA_ROWS)
+    part_ml, part_acc = _decode_scratch(B * Hkv * ranges * G, Dv, device)
+    return ranges, part_ml, part_acc
+
+
 def _check_widths(what: str, **pairs) -> None:
     """Before a launch: each (name -> (width, expected)) must agree, or
     the kernel would read past a row."""
@@ -882,13 +900,14 @@ def gqa_decode_attn_plain(q, k_cache, v_cache, cur_pos,
 
 def fused_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, *, cur_pos: torch.Tensor,
-                           window: int = 0) -> torch.Tensor:
+                           window: int = 0, out=None) -> torch.Tensor:
     """Fused GQA decode attention (one kernel, online softmax).
 
     Same contract as ``layers.attention.decode_attention``:
     q [B, Hq, 1, D]; caches [B, Hkv, S, D]/[B, Hkv, S, Dv]; cur_pos [B]
     int — attends cache positions p <= cur_pos[b] (windowed if set).
-    Returns [B, Hq, 1, Dv] in q.dtype. Inference-only.
+    Returns [B, Hq, 1, Dv] in q.dtype (into ``out`` when given, on the
+    card). Inference-only.
     """
     _check_decode_attn(q, k_cache, v_cache, cur_pos)
     if not q.is_cuda:
@@ -897,23 +916,22 @@ def fused_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     Hkv, S, Dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[3]
     G = Hq // Hkv
     what = "fused_decode_attention"
+    _check_widths(what, **{"k_cache head dim": (k_cache.shape[3], D)})
     dt, _ = _kernel_args(what, (q, k_cache, v_cache))
     cur = _int32_on(cur_pos, q.device, what, "cur_pos")
     qc = q.contiguous()
     kc, vc = k_cache.contiguous(), v_cache.contiguous()
-    # split each slot's rows across blocks so that B*Hkv fills the card
-    splits = _splits(-(-S // 32), B * Hkv, q.device)
-    part_ml, part_acc = _decode_scratch(B * Hkv * splits * G, Dv, q.device)
-    out = torch.empty((B, Hkv, G, Dv), dtype=q.dtype, device=q.device)
+    ranges, part_ml, part_acc = _gqa_partials(B, Hkv, G, S, Dv, q.device)
+    out = _out(out, (B, Hq, 1, Dv), q)
     err = _build.library().lib.repro_gqa_decode_attn(
         qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), cur.data_ptr(),
         part_ml[0].data_ptr(), part_ml[1].data_ptr(), part_acc.data_ptr(),
         out.data_ptr(), B, Hkv, G, S, D, Dv, 1.0 / math.sqrt(D),
-        int(window), splits, dt, _stream(q.device))
+        int(window), ranges, dt, _stream(q.device))
     _build.check(err, "fused_decode_attention")
     _launched(fused_decode_attention, ("repro_gqa_decode_attn", B, Hkv, G, D,
-                                       Dv, splits, dt))
-    return out.reshape(B, Hq, 1, Dv)
+                                       Dv, ranges, dt))
+    return out
 
 
 fused_decode_attention.launches = 0
@@ -1055,18 +1073,18 @@ def fused_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     dt, _ = _kernel_args(what, (q, k_pool, v_pool))
     pt = _int32_on(pages, q.device, what, "pages")
     cur = _int32_on(cur_pos, q.device, what, "cur_pos")
-    splits = _splits(-(-(pps * ps) // 32), B * Hkv, q.device)
-    part_ml, part_acc = _decode_scratch(B * Hkv * splits * G, Dv, q.device)
+    ranges, part_ml, part_acc = _gqa_partials(B, Hkv, G, pps * ps, Dv,
+                                              q.device)
     out = _out(out, (B, Hq, 1, Dv), q)
     err = _build.library().lib.repro_gqa_paged_decode_attn(
         q.contiguous().data_ptr(), k_pool.contiguous().data_ptr(),
         v_pool.contiguous().data_ptr(), pt.data_ptr(), cur.data_ptr(),
         part_ml[0].data_ptr(), part_ml[1].data_ptr(), part_acc.data_ptr(),
         out.data_ptr(), B, Hkv, G, num_pages, ps, pps, D, Dv,
-        1.0 / math.sqrt(D), int(window), splits, dt, _stream(q.device))
+        1.0 / math.sqrt(D), int(window), ranges, dt, _stream(q.device))
     _build.check(err, what)
     _launched(fused_paged_decode_attention,
-              ("repro_gqa_paged_decode_attn", B, Hkv, G, D, Dv, splits, dt))
+              ("repro_gqa_paged_decode_attn", B, Hkv, G, D, Dv, ranges, dt))
     return out
 
 

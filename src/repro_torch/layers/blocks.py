@@ -37,6 +37,8 @@ from repro_torch.layers.tp_linear import (ControlContext, controlled_ffn,
                                           controlled_proj)
 
 LATER_SLICE = "a later slice of the port (ROADMAP.md, queue A.7)"
+LM_TRAIN_SLICE = ("the LM training and prefill slice of the port "
+                  "(ROADMAP.md, queue A.5)")
 
 # ---------------------------------------------------------------------------
 # Small pieces
@@ -226,7 +228,7 @@ def apply_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     B, S, d = x.shape
     if cache is not None and S != 1:
         raise NotImplementedError(
-            f"prefill into a decode cache comes with {LATER_SLICE}")
+            f"prefill into a decode cache comes with {LM_TRAIN_SLICE}")
     hd = cfg.resolved_head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
 
@@ -299,7 +301,7 @@ def _apply_mla(p: Attention, x, cfg, *, ctx, positions, cache, cur_pos,
     if cache is None or S != 1:
         raise NotImplementedError(
             f"MLA's expanded full-sequence form (training, prefill) comes "
-            f"with {LATER_SLICE}")
+            f"with {LM_TRAIN_SLICE}")
     H = cfg.num_heads
     dn, dr, dv, R = (m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim,
                      m.kv_lora_rank)

@@ -778,3 +778,181 @@ def test_cuda_block_pruned_matmul_routes_match_plain(cuda_device, dtype,
         torch.cuda.synchronize()
         assert tops.block_pruned_matmul.launches == before + 1
         assert torch.equal(y, got[0])
+
+
+# ---------------------------------------------------------------------------
+# #1 and #4: one kernel, two row policies (gqa_decode_attn.cu)
+# ---------------------------------------------------------------------------
+
+# (G, D, S or pps * ps, window): the CPU model's cases (test_torch_gqa_attn),
+# plus D = 72 (a zero-filled copy past D), D = 36 (bf16 rows of 72
+# bytes: the element-wise path), and G = 17 with Dv = 2 D = 192 (two
+# groups of query heads, two column chunks)
+_GQA_CASES = [
+    (1, 32, 200, 0), (2, 64, 256, 1), (3, 128, 300, 9), (8, 128, 256, 200),
+    (8, 32, 500, 0), (3, 64, 200, 200), (2, 72, 130, 9), (4, 36, 77, 0),
+    (17, 96, 160, 0),
+]
+
+
+def _gqa_nan_rows(t, ok):
+    """NaN in the rows [B, Hkv, S, d] of t that ``ok`` [B, S] does not
+    attend."""
+    t = t.clone()
+    t[(~ok)[:, None, :, None].expand_as(t)] = float("nan")
+    return t
+
+
+def _gqa_calls(call, ref, shape, dtype, device, wrapper, policy):
+    """Two calls into NaN-filled outputs: finite, within tolerance of the
+    plain version, bit-identical, one launch each, launch names that show
+    the row policy."""
+    launches = []
+    prev = tops.set_launch_hook(lambda name, ls: launches.append(ls))
+    before = wrapper.launches
+    got = []
+    try:
+        for _ in range(2):
+            out = _nan(shape, dtype, device)
+            y = call(out)
+            torch.cuda.synchronize()
+            assert y.data_ptr() == out.data_ptr()
+            assert bool(torch.isfinite(y.float()).all())
+            _close(y, ref, dtype)
+            got.append(y.clone())
+    finally:
+        tops.set_launch_hook(prev)
+    assert torch.equal(got[0], got[1])
+    assert wrapper.launches == before + 2
+    assert len(launches) == 2
+    for ls in launches:
+        names = [ln.fn for ln in ls]
+        assert len(names) == 2
+        assert names[0].startswith(f"gqa_decode_partial_kernel<{policy},")
+        assert names[1] == f"gqa_decode_merge_kernel<{policy},{_tname(dtype)}>"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,D,S,window", _GQA_CASES)
+def test_cuda_gqa_decode_attention_matches_plain(cuda_device, dtype, G, D, S,
+                                                 window):
+    """#1 (SlotRows) at cur_pos -1, 0, S - 1, 2**30 and two middle rows,
+    every row it must not read NaN."""
+    g = torch.Generator(device=cuda_device).manual_seed(G * D + S + window)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    Hkv, B = 2, 6
+    cur = torch.tensor([-1, 0, S - 1, 2 ** 30, S // 2 + 3, S // 3],
+                       dtype=torch.int32, device=cuda_device)
+    ok = tops.attended_rows(S, cur, window, cuda_device)
+    q = rnd(B, Hkv * G, 1, D)
+    k = _gqa_nan_rows(rnd(B, Hkv, S, D), ok)
+    Dv = 2 * D if G == 17 else D
+    v = _gqa_nan_rows(rnd(B, Hkv, S, Dv), ok)
+    ref = tops.gqa_decode_attn_plain(q, k, v, cur, window)
+    _gqa_calls(lambda out: tops.fused_decode_attention(
+        q, k, v, cur_pos=cur, window=window, out=out), ref,
+        (B, Hkv * G, 1, Dv), dtype, cuda_device, tops.fused_decode_attention,
+        "SlotRows")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,D,L,window", _GQA_CASES)
+@pytest.mark.parametrize("ps", [8, 16])
+def test_cuda_gqa_paged_decode_attention_matches_plain(cuda_device, dtype, G,
+                                                       D, L, window, ps):
+    """#4 (PagedRows): shuffled pages, trailing -1 entries, the invalid
+    lane over all but two pages; NaN in every unreferenced page and in
+    every row of a referenced page that the slot does not attend."""
+    g = torch.Generator(device=cuda_device).manual_seed(G * D + L + ps)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+
+    Hkv, pps = 2, -(-L // ps)
+    cur_l = [-1, 0, pps * ps - 1 - ps, 2 ** 30, L // 2 + 1, 5]
+    num_pages = 3 * pps + 2
+    pages, unref = _paged_case(g, cuda_device, [max(c, 0) for c in cur_l],
+                               ps, pps, num_pages)
+    pages[0] = -1                       # cur_pos -1: an empty slot
+    unref = torch.ones(num_pages, dtype=torch.bool, device=cuda_device)
+    unref[pages[pages >= 0].long()] = False
+    cur = torch.tensor(cur_l, dtype=torch.int32, device=cuda_device)
+    q = rnd(len(cur_l), Hkv * G, 1, D)
+    Dv = 2 * D if G == 17 else D
+    pools = []
+    for width in (D, Dv):
+        pool = rnd(num_pages, Hkv, ps, width)
+        pool[unref] = float("nan")
+        ok = tops.paged_attended_rows(pages, ps, num_pages, cur, window)
+        for b, row in enumerate(pages.tolist()):
+            for j, page in enumerate(row):
+                if page >= 0:
+                    miss = ~ok[b, j * ps:(j + 1) * ps]
+                    pool[page, :, miss] = float("nan")
+        pools.append(pool)
+    kp, vp = pools
+    ref = tops.gqa_paged_decode_attn_plain(q, kp, vp, pages, cur, window)
+    _gqa_calls(lambda out: tops.fused_paged_decode_attention(
+        q, kp, vp, pages=pages, cur_pos=cur, window=window, out=out), ref,
+        (len(cur_l), Hkv * G, 1, Dv), dtype, cuda_device,
+        tops.fused_paged_decode_attention, "PagedRows")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gqa_decode_attention_unaligned_base(cuda_device, dtype):
+    """Contiguous K / V whose base is one element past a 16-byte boundary:
+    the element-wise path, in the same kernel, gives the vector path's
+    result."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    B, Hkv, G, S, D = 3, 2, 4, 150, 64
+    cur = torch.tensor([149, 2 ** 30, 40], dtype=torch.int32,
+                       device=cuda_device)
+    q = torch.randn((B, Hkv * G, 1, D), generator=g, device=cuda_device).to(
+        dtype)
+    n = B * Hkv * S * D
+    flat = torch.randn((2, n + 1), generator=g, device=cuda_device).to(dtype)
+    k, v = flat[0, 1:].view(B, Hkv, S, D), flat[1, 1:].view(B, Hkv, S, D)
+    assert k.is_contiguous() and k.data_ptr() % 16 != 0
+    ref = tops.gqa_decode_attn_plain(q, k, v, cur, 0)
+    _gqa_calls(lambda out: tops.fused_decode_attention(
+        q, k, v, cur_pos=cur, out=out), ref, (B, Hkv * G, 1, D), dtype,
+        cuda_device, tops.fused_decode_attention, "SlotRows")
+    # the same values in the same stages: the same bits
+    assert torch.equal(
+        tops.fused_decode_attention(q, k.clone(), v.clone(), cur_pos=cur),
+        tops.fused_decode_attention(q, k, v, cur_pos=cur))
+
+
+@pytest.mark.cuda
+def test_cuda_gqa_launch_configs(cuda_device):
+    """The grid is (B * Hkv, ceil(length / kRows), query-head groups x
+    column chunks) from the shapes alone; the names carry the policy, the
+    type and the head-dim tile (128, or 0: any D, Dv in chunks of 128);
+    every launch fits the card at Yi-6B's shapes and at a wide head."""
+    from repro_torch.analysis import smem
+    from repro_torch.kernels import build
+
+    rows = tops.GQA_ROWS
+    for entry, policy in (("repro_gqa_decode_attn", "SlotRows"),
+                          ("repro_gqa_paged_decode_attn", "PagedRows")):
+        part, merge = build.launch_config(entry, 8, 4, 8, 128, 128,
+                                          1024 // rows, 1)
+        assert part.fn == f"gqa_decode_partial_kernel<{policy},__nv_bfloat16,128>"
+        assert merge.fn == f"gqa_decode_merge_kernel<{policy},__nv_bfloat16>"
+        assert part.grid == (32, 1024 // rows, 1) and part.threads == 128
+        assert merge.grid == (-(-8 * 4 * 8 * 128 // 256), 1, 1)
+        part, _ = build.launch_config(entry, 2, 1, 40, 64, 200, 3, 0)
+        assert part.fn == f"gqa_decode_partial_kernel<{policy},float,0>"
+        assert part.grid == (2, 3, 3 * 2)
+        part, _ = build.launch_config(entry, 2, 1, 4, 32, 32, 1, 0)
+        assert part.fn == f"gqa_decode_partial_kernel<{policy},float,128>"
+        smem.assert_fits(build.launch_config(entry, 8, 4, 8, 128, 128, 8, 0))
+        wide = build.launch_config(entry, 1, 1, 8, 1024, 1024, 1, 0)
+        assert wide[0].threads < 128       # fewer warps where D is wide
+        smem.assert_fits(wide)
