@@ -13,21 +13,25 @@ Phases, each printing one line of its own; any failure exits non-zero:
               at the shapes full-width Yi-6B and DeepSeek-V2-Lite serving
               with 8 slots give it, in float32 (max |err| <= 1e-4 * max
               |ref|) and bfloat16 (max |err| <= 2e-2 * max |ref|), plus
-              block 8 at a small shape; the decode attentions (#1, #4-#6)
-              write into NaN-filled outputs, #1 reading a cache whose
-              unattended rows are NaN and #4-#6 pools whose unreferenced
-              pages are NaN (ragged positions, one invalid lane, a
-              shuffled page order, trailing -1 entries), and #1 and #4
-              twice, for the same bits; each timed with CUDA events beside its plain
-              version, a one-call PyTorch yardstick where one exists, and
-              its bound at 3.35 TB/s and 989 (bf16) / 67 (f32) TFLOP/s
-              (the tensor-core kernels' f32 also at 3xTF32's 495/3), the
-              yardstick's device time beside its event time;
-              the unfused decode attention (#7, the baseline of the fused
-              one) at #1's shapes and positions, with a second bound for
-              its own traffic (every K/V row and the f32 score matrix),
-              and at the shapes and positions of the analysis phase's
-              micro_kernel probe, where its launches come from.
+              block 8 at a small shape; the decode attentions (#1, #4-#7)
+              write into NaN-filled outputs, #1 and #5 reading caches
+              whose unattended rows are NaN and #4 and #6 pools whose
+              unreferenced pages are NaN (ragged positions, one invalid
+              lane, a shuffled page order, trailing -1 entries), twice,
+              for the same bits; each timed with CUDA events beside its
+              plain version, a one-call PyTorch yardstick where one
+              exists, and its bound at 3.35 TB/s and 989 (bf16) / 67 (f32)
+              TFLOP/s (the tensor-core kernels' f32 also at 3xTF32's
+              495/3), the yardstick's device time beside its event time;
+              #5 and #6 also at a DeepSeek-V2-Lite decode step's positions
+              (8 slots attending 64-320 rows); the unfused decode
+              attention (#7, the baseline of the fused one) at #1's shapes
+              and positions, with a second bound for its own traffic
+              (every K/V row and the f32 score matrix), and at the shapes
+              and positions of the analysis phase's micro_kernel probe,
+              where its launches come from; for #5-#7 in bf16 one line of
+              device ms per call by launch (partial and merge; scores,
+              softmax and wsum) beside the bound.
    analysis — the port's static invariant gate on the card:
               ``python -m repro_torch.analysis --check --mutate`` must
               return 0 (the train, serve-decode and serve-engine steps
@@ -456,6 +460,16 @@ def main():
             say("kernels", f"{name}: two calls differ (FAIL)")
         return outs[0]
 
+    def launch_split(name, where, fn, n_sets, labels, bound):
+        """One line: the device ms per call of each __global__ function
+        of the wrapper's launches (the profiler's), beside the bound."""
+        krows, n = profiled_kernels(fn, n_sets)
+        say("kernels", f"{name} {where} bf16, device ms per call by "
+            "launch: " + "; ".join(
+                f"{next((w for w in labels if w in k), k[:40])} "
+                f"{ms / n:.4f}" for k, _, ms in krows)
+            + f"; bound {bound:.4f}")
+
     # -- fused GQA decode attention -------------------------------------------
     Hq, Hkv, S, D = full.num_heads, full.num_kv_heads, 1024, 128
     cur_np = np.asarray([0, 127, 128, S - 1, 2 ** 30, 31, 500, 777], np.int32)
@@ -521,11 +535,12 @@ def main():
         del qs, ks, vs
 
     # -- unfused GQA decode attention (#7), the baseline of #1, at #1's
-    # shapes and positions, into NaN-filled outputs: three launches with
-    # the f32 score matrix [8, 4, 8, 1024] in device memory and every
-    # cache row read whatever cur_pos is. Two bounds: the function's (the
-    # attended rows, as #1's) and the kernel's own traffic (all K/V rows,
-    # the score matrix written, read, written and read again)
+    # shapes and positions, into NaN-filled outputs, twice, for the same
+    # bits: three launches with the f32 score matrix [8, 4, 8, 1024] in
+    # device memory and every cache row read whatever cur_pos is. Two
+    # bounds: the function's (the attended rows, as #1's) and the kernel's
+    # own traffic (all K/V rows, the score matrix written, read, written
+    # and read again)
     G = Hq // Hkv
     mask = (torch.arange(S, device=dev)[None, :]
             <= cur.long()[:, None])[:, None, None, :]
@@ -535,16 +550,28 @@ def main():
         qs = [rnd((B, Hq, 1, D), dtype) for _ in range(n_sets)]
         ks = [rnd((B, Hkv, S, D), dtype) for _ in range(n_sets)]
         vs = [rnd((B, Hkv, S, D), dtype) for _ in range(n_sets)]
-        out = torch.full((B, Hq, 1, D), float("nan"), dtype=dtype,
-                         device=dev)
-        got = ops.unfused_decode_attention(qs[0], ks[0], vs[0], cur_pos=cur,
-                                           out=out)
-        if got.data_ptr() != out.data_ptr():
-            raise SystemExit("unfused_decode_attention did not write into "
-                             "`out`")
+        got = same_bits([written(ops.unfused_decode_attention(
+            qs[0], ks[0], vs[0], cur_pos=cur, out=out), out,
+            "unfused_decode_attention")
+            for out in (nan_out((B, Hq, 1, D), dtype),
+                        nan_out((B, Hq, 1, D), dtype))],
+            "unfused_decode_attention")
         ref = ops.unfused_gqa_decode_attn_plain(qs[0], ks[0], vs[0], cur)
-        kx = [k.repeat_interleave(G, 1) for k in ks]
-        vx = [v.repeat_interleave(G, 1) for v in vs]
+        # the yardstick: SDPA with the position mask, reading the KV heads
+        # itself where this PyTorch has enable_gqa (else expanded outside
+        # the timing), as #1's
+        try:
+            F.scaled_dot_product_attention(qs[0], ks[0], vs[0],
+                                           attn_mask=mask, enable_gqa=True)
+            kx, vx, gqa = ks, vs, {"enable_gqa": True}
+        except TypeError:
+            kx = [k.repeat_interleave(G, 1) for k in ks]
+            vx = [v.repeat_interleave(G, 1) for v in vs]
+            gqa = {}
+
+        def sdpa7(i):
+            return F.scaled_dot_product_attention(
+                qs[i], kx[i], vx[i], attn_mask=mask, **gqa)
         timings = {
             "ms": time_ms(lambda i: ops.unfused_decode_attention(
                 qs[i], ks[i], vs[i], cur_pos=cur), n_sets),
@@ -552,19 +579,17 @@ def main():
                 qs[i], ks[i], vs[i], cur_pos=cur), n_sets),
             "plain_ms": time_ms(lambda i: ops.unfused_gqa_decode_attn_plain(
                 qs[i], ks[i], vs[i], cur), n_sets),
-            "library_ms": time_ms(lambda i: F.scaled_dot_product_attention(
-                qs[i], kx[i], vx[i], attn_mask=mask), n_sets),
-            "library_device_ms": library_device_ms(
-                lambda i: F.scaled_dot_product_attention(
-                    qs[i], kx[i], vx[i], attn_mask=mask), n_sets)}
-        if dtype == torch.bfloat16:
-            krows, n = profiled_kernels(lambda i: ops.unfused_decode_attention(
-                qs[i], ks[i], vs[i], cur_pos=cur), n_sets)
-            say("kernels", "unfused_decode_attention bf16, device ms per "
-                "call by launch: " + "; ".join(
-                    f"{next((w for w in ('scores', 'softmax', 'wsum') if w in k), k[:40])} "
-                    f"{ms / n:.4f}" for k, _, ms in krows))
+            "library_ms": time_ms(sdpa7, n_sets),
+            "library_device_ms": library_device_ms(sdpa7, n_sets)}
         rows = int(mask.sum())
+        if dtype == torch.bfloat16:
+            launch_split("unfused_decode_attention", "phase 2",
+                         lambda i: ops.unfused_decode_attention(
+                             qs[i], ks[i], vs[i], cur_pos=cur), n_sets,
+                         ("scores", "softmax", "wsum"), bound_ms(
+                             (rows * Hkv * 2 * D + 2 * B * Hq * D) * es
+                             + B * 4, rows * Hq * 2 * 2 * D,
+                             "bfloat16")[0])
         traffic = (2 * B * Hkv * S * D * es + 2 * B * Hq * D * es + B * 4
                    + 4 * B * Hkv * G * S * 4)
         record("unfused_decode_attention",
@@ -611,22 +636,31 @@ def main():
     # output element shows it.
     PS, PPS = 16, S // 16
     N_PAGES = B * PPS
-    perm = np.random.default_rng(4).permutation(N_PAGES)
-    table = np.full((B, PPS), -1, np.int32)
-    used = 0
-    for b, c in enumerate(cur_np):
-        n = PPS - 2 if c >= S else c // PS + 1
-        table[b, :n] = perm[used:used + n]
-        used += n
-    pages = torch.from_numpy(table).to(dev)
-    unref = torch.ones(N_PAGES, dtype=torch.bool)
-    unref[torch.from_numpy(table[table >= 0]).long()] = False
-    unref = unref.to(dev)
-    H_MLA, R_MLA, DR_MLA, SCALE_DIM = 16, 512, 64, 192   # DeepSeek-V2-Lite
 
-    def nan_pool(shape, dtype):
-        t = rnd(shape, dtype)
-        t[unref] = float("nan")
+    def table_for(positions):
+        """The page table of slots at these positions, and the mask of
+        the pool pages it does not reference."""
+        perm = np.random.default_rng(4).permutation(N_PAGES)
+        table = np.full((B, PPS), -1, np.int32)
+        used = 0
+        for b, c in enumerate(positions):
+            n = PPS - 2 if c >= S else c // PS + 1
+            table[b, :n] = perm[used:used + n]
+            used += n
+        unref_ = torch.ones(N_PAGES, dtype=torch.bool)
+        unref_[torch.from_numpy(table[table >= 0]).long()] = False
+        return torch.from_numpy(table).to(dev), unref_.to(dev)
+
+    pages, unref = table_for(cur_np)
+    H_MLA, R_MLA, DR_MLA, SCALE_DIM = 16, 512, 64, 192   # DeepSeek-V2-Lite
+    # a decode step of the DeepSeek-V2-Lite serve: 8 slots, 64-320 rows
+    MLA_STEP_CUR = np.asarray([63, 99, 136, 172, 209, 246, 282, 319],
+                              np.int32)
+
+    def nan_pool(t, unref_):
+        """The pool t, in place, with NaN in every page no table
+        references."""
+        t[unref_] = float("nan")
         return t
 
     def sdpa_yardstick(q4, k4, v4, mask4, scale=None):
@@ -665,8 +699,10 @@ def main():
         es = torch.finfo(dtype).bits // 8
         n_sets = copies_for(2 * N_PAGES * Hkv * PS * D * es)
         qs = [rnd((B, Hq, 1, D), dtype) for _ in range(n_sets)]
-        kps = [nan_pool((N_PAGES, Hkv, PS, D), dtype) for _ in range(n_sets)]
-        vps = [nan_pool((N_PAGES, Hkv, PS, D), dtype) for _ in range(n_sets)]
+        kps = [nan_pool(rnd((N_PAGES, Hkv, PS, D), dtype), unref)
+               for _ in range(n_sets)]
+        vps = [nan_pool(rnd((N_PAGES, Hkv, PS, D), dtype), unref)
+               for _ in range(n_sets)]
         for window in (0, 200):
             got = same_bits([written(ops.fused_paged_decode_attention(
                 qs[0], kps[0], vps[0], pages=pages, cur_pos=cur,
@@ -705,87 +741,124 @@ def main():
             del kg, vg, lib_fns
         del qs, kps, vps
 
-        # absorbed MLA: f32 output [8, 16, 512] from bf16 / f32 inputs
+        # absorbed MLA, #5 over the slot cache and #6 over the paged pool
+        # (one kernel body, two row policies): f32 output [8, 16, 512]
+        # from bf16 / f32 inputs, at phase 2's positions and at a decode
+        # step's of the DeepSeek-V2-Lite serve (8 slots attending 64-320
+        # rows: its prompts of 64-256 tokens and 64 new ones). #5 reads a
+        # cache whose unattended rows are NaN and #6 pools whose
+        # unreferenced pages are NaN, each into NaN-filled outputs, twice,
+        # for the same bits
         n_sets = copies_for(B * S * (R_MLA + DR_MLA) * es)
         qas = [rnd((B, H_MLA, R_MLA), dtype) for _ in range(n_sets)]
         qrs = [rnd((B, H_MLA, DR_MLA), dtype) for _ in range(n_sets)]
         lats = [rnd((B, S, R_MLA), dtype) for _ in range(n_sets)]
         ropes = [rnd((B, S, DR_MLA), dtype) for _ in range(n_sets)]
-        out = nan_out((B, H_MLA, R_MLA), torch.float32)
-        got = written(ops.fused_mla_decode_attention(
-            qas[0], qrs[0], lats[0], ropes[0], cur_pos=cur,
-            head_dim_for_scale=SCALE_DIM, out=out), out,
-            "fused_mla_decode_attention")
-        ref = ops.mla_decode_attn_plain(qas[0], qrs[0], lats[0], ropes[0],
-                                        cur, SCALE_DIM)
-        ok_rows = ops.attended_rows(S, cur, device=dev)
-        lib_fns = [sdpa_yardstick(
-            torch.cat([qas[i], qrs[i]], -1)[:, :, None, :],
-            torch.cat([lats[i], ropes[i]], -1)[:, None],
-            lats[i][:, None], ok_rows[:, None, None, :],
-            scale=1.0 / math.sqrt(SCALE_DIM)) for i in range(n_sets)]
-        timings = {
-            "ms": time_ms(lambda i: ops.fused_mla_decode_attention(
-                qas[i], qrs[i], lats[i], ropes[i], cur_pos=cur,
-                head_dim_for_scale=SCALE_DIM), n_sets),
-            "device_ms": device_ms(lambda i: ops.fused_mla_decode_attention(
-                qas[i], qrs[i], lats[i], ropes[i], cur_pos=cur,
-                head_dim_for_scale=SCALE_DIM), n_sets),
-            "plain_ms": time_ms(lambda i: ops.mla_decode_attn_plain(
-                qas[i], qrs[i], lats[i], ropes[i], cur, SCALE_DIM), n_sets),
-            "library_ms": lib_ms(lib_fns, n_sets),
-            "library_device_ms": lib_device_ms(lib_fns, n_sets)}
-        rows = int(ok_rows.sum())
-        mla_bytes = (rows * (R_MLA + DR_MLA) * es
-                     + B * H_MLA * (R_MLA + DR_MLA) * es
-                     + B * H_MLA * R_MLA * 4 + B * 4)
-        mla_flops = rows * H_MLA * (2 * (R_MLA + DR_MLA) + 2 * R_MLA)
-        record("fused_mla_decode_attention",
-               "q_abs[8,16,512] q_rope[8,16,64] latent[8,1024,512] "
-               "rope[8,1024,64] scale 1/sqrt(192)", dtype, got, ref, timings,
-               mla_bytes, mla_flops, dtype == torch.bfloat16)
-        del lats, ropes, lib_fns
+        for where, mcur_np in (("phase 2", cur_np), ("decode step",
+                                                     MLA_STEP_CUR)):
+            mcur = torch.from_numpy(mcur_np).to(dev)
+            mpages, munref = table_for(mcur_np)
+            first = where == "phase 2"
+            ok_rows = ops.attended_rows(S, mcur, device=dev)
+            unread = ~ok_rows[:, :, None]
+            lat_nan = lats[0].masked_fill(unread, float("nan"))
+            rope_nan = ropes[0].masked_fill(unread, float("nan"))
+            got = same_bits([written(ops.fused_mla_decode_attention(
+                qas[0], qrs[0], lat_nan, rope_nan, cur_pos=mcur,
+                head_dim_for_scale=SCALE_DIM, out=out), out,
+                "fused_mla_decode_attention")
+                for out in (nan_out((B, H_MLA, R_MLA), torch.float32),
+                            nan_out((B, H_MLA, R_MLA), torch.float32))],
+                "fused_mla_decode_attention")
+            del lat_nan, rope_nan, unread
+            ref = ops.mla_decode_attn_plain(qas[0], qrs[0], lats[0],
+                                            ropes[0], mcur, SCALE_DIM)
+            lib_fns = [sdpa_yardstick(
+                torch.cat([qas[i], qrs[i]], -1)[:, :, None, :],
+                torch.cat([lats[i], ropes[i]], -1)[:, None],
+                lats[i][:, None], ok_rows[:, None, None, :],
+                scale=1.0 / math.sqrt(SCALE_DIM)) for i in range(n_sets)]
 
-        lps = [nan_pool((N_PAGES, PS, R_MLA), dtype) for _ in range(n_sets)]
-        rps = [nan_pool((N_PAGES, PS, DR_MLA), dtype) for _ in range(n_sets)]
-        out = nan_out((B, H_MLA, R_MLA), torch.float32)
-        got = written(ops.fused_paged_mla_decode_attention(
-            qas[0], qrs[0], lps[0], rps[0], pages=pages, cur_pos=cur,
-            head_dim_for_scale=SCALE_DIM, out=out), out,
-            "fused_paged_mla_decode_attention")
-        ref = ops.mla_paged_decode_attn_plain(qas[0], qrs[0], lps[0], rps[0],
-                                              pages, cur, SCALE_DIM)
-        ok_rows = ops.paged_attended_rows(pages, PS, N_PAGES, cur)
-        lib_fns = [sdpa_yardstick(
-            torch.cat([qas[i], qrs[i]], -1)[:, :, None, :],
-            torch.cat([gather_paged_rows(lps[i], pages),
-                       gather_paged_rows(rps[i], pages)], -1)[:, None],
-            gather_paged_rows(lps[i], pages)[:, None],
-            ok_rows[:, None, None, :], scale=1.0 / math.sqrt(SCALE_DIM))
-            for i in range(n_sets)]
-        timings = {
-            "ms": time_ms(lambda i: ops.fused_paged_mla_decode_attention(
-                qas[i], qrs[i], lps[i], rps[i], pages=pages, cur_pos=cur,
-                head_dim_for_scale=SCALE_DIM), n_sets),
-            "device_ms": device_ms(
-                lambda i: ops.fused_paged_mla_decode_attention(
-                    qas[i], qrs[i], lps[i], rps[i], pages=pages, cur_pos=cur,
-                    head_dim_for_scale=SCALE_DIM), n_sets),
-            "plain_ms": time_ms(lambda i: ops.mla_paged_decode_attn_plain(
-                qas[i], qrs[i], lps[i], rps[i], pages, cur, SCALE_DIM),
-                n_sets),
-            "library_ms": lib_ms(lib_fns, n_sets),
-            "library_device_ms": lib_device_ms(lib_fns, n_sets)}
-        rows = int(ok_rows.sum())
-        mla_bytes = (rows * (R_MLA + DR_MLA) * es
-                     + B * H_MLA * (R_MLA + DR_MLA) * es
-                     + B * H_MLA * R_MLA * 4 + B * 4 + B * PPS * 4)
-        record("fused_paged_mla_decode_attention",
-               f"q_abs[8,16,512] q_rope[8,16,64] pools[{N_PAGES},16,512] / "
-               f"[{N_PAGES},16,64] pages[8,64]", dtype, got, ref, timings,
-               mla_bytes, rows * H_MLA * (2 * (R_MLA + DR_MLA) + 2 * R_MLA),
-               dtype == torch.bfloat16)
-        del qas, qrs, lps, rps, lib_fns
+            def slot_call(i, c=mcur):
+                return ops.fused_mla_decode_attention(
+                    qas[i], qrs[i], lats[i], ropes[i], cur_pos=c,
+                    head_dim_for_scale=SCALE_DIM)
+            timings = {
+                "ms": time_ms(slot_call, n_sets),
+                "device_ms": device_ms(slot_call, n_sets),
+                "plain_ms": time_ms(lambda i: ops.mla_decode_attn_plain(
+                    qas[i], qrs[i], lats[i], ropes[i], mcur, SCALE_DIM),
+                    n_sets),
+                "library_ms": lib_ms(lib_fns, n_sets),
+                "library_device_ms": lib_device_ms(lib_fns, n_sets)}
+            rows = int(ok_rows.sum())
+            mla_bytes = (rows * (R_MLA + DR_MLA) * es
+                         + B * H_MLA * (R_MLA + DR_MLA) * es
+                         + B * H_MLA * R_MLA * 4 + B * 4)
+            mla_flops = rows * H_MLA * (2 * (R_MLA + DR_MLA) + 2 * R_MLA)
+            if dtype == torch.bfloat16:
+                launch_split("fused_mla_decode_attention", where, slot_call,
+                             n_sets, ("partial", "merge"),
+                             bound_ms(mla_bytes, mla_flops, "bfloat16")[0])
+            record("fused_mla_decode_attention",
+                   f"{where} q_abs[8,16,512] q_rope[8,16,64] "
+                   f"latent[8,1024,512] rope[8,1024,64] scale 1/sqrt(192) "
+                   f"cur_pos {mcur_np.tolist()}", dtype, got, ref, timings,
+                   mla_bytes, mla_flops, first and dtype == torch.bfloat16)
+            del lib_fns
+
+            lps = [nan_pool(lat.reshape(N_PAGES, PS, R_MLA).clone(), munref)
+                   for lat in lats]
+            rps = [nan_pool(rope.reshape(N_PAGES, PS, DR_MLA).clone(),
+                            munref) for rope in ropes]
+            got = same_bits([written(ops.fused_paged_mla_decode_attention(
+                qas[0], qrs[0], lps[0], rps[0], pages=mpages, cur_pos=mcur,
+                head_dim_for_scale=SCALE_DIM, out=out), out,
+                "fused_paged_mla_decode_attention")
+                for out in (nan_out((B, H_MLA, R_MLA), torch.float32),
+                            nan_out((B, H_MLA, R_MLA), torch.float32))],
+                "fused_paged_mla_decode_attention")
+            ref = ops.mla_paged_decode_attn_plain(
+                qas[0], qrs[0], lps[0], rps[0], mpages, mcur, SCALE_DIM)
+            ok_rows = ops.paged_attended_rows(mpages, PS, N_PAGES, mcur)
+            lib_fns = [sdpa_yardstick(
+                torch.cat([qas[i], qrs[i]], -1)[:, :, None, :],
+                torch.cat([gather_paged_rows(lps[i], mpages),
+                           gather_paged_rows(rps[i], mpages)], -1)[:, None],
+                gather_paged_rows(lps[i], mpages)[:, None],
+                ok_rows[:, None, None, :], scale=1.0 / math.sqrt(SCALE_DIM))
+                for i in range(n_sets)]
+
+            def paged_call(i, c=mcur, p=mpages):
+                return ops.fused_paged_mla_decode_attention(
+                    qas[i], qrs[i], lps[i], rps[i], pages=p, cur_pos=c,
+                    head_dim_for_scale=SCALE_DIM)
+            timings = {
+                "ms": time_ms(paged_call, n_sets),
+                "device_ms": device_ms(paged_call, n_sets),
+                "plain_ms": time_ms(
+                    lambda i: ops.mla_paged_decode_attn_plain(
+                        qas[i], qrs[i], lps[i], rps[i], mpages, mcur,
+                        SCALE_DIM), n_sets),
+                "library_ms": lib_ms(lib_fns, n_sets),
+                "library_device_ms": lib_device_ms(lib_fns, n_sets)}
+            rows = int(ok_rows.sum())
+            mla_bytes = (rows * (R_MLA + DR_MLA) * es
+                         + B * H_MLA * (R_MLA + DR_MLA) * es
+                         + B * H_MLA * R_MLA * 4 + B * 4 + B * PPS * 4)
+            mla_flops = rows * H_MLA * (2 * (R_MLA + DR_MLA) + 2 * R_MLA)
+            if dtype == torch.bfloat16:
+                launch_split("fused_paged_mla_decode_attention", where,
+                             paged_call, n_sets, ("partial", "merge"),
+                             bound_ms(mla_bytes, mla_flops, "bfloat16")[0])
+            record("fused_paged_mla_decode_attention",
+                   f"{where} q_abs[8,16,512] q_rope[8,16,64] "
+                   f"pools[{N_PAGES},16,512] / [{N_PAGES},16,64] "
+                   f"pages[8,64] cur_pos {mcur_np.tolist()}", dtype, got,
+                   ref, timings, mla_bytes, mla_flops,
+                   first and dtype == torch.bfloat16)
+            del lps, rps, lib_fns
+        del qas, qrs, lats, ropes
     torch.cuda.synchronize()
     if failures:
         raise SystemExit(f"kernel checks failed: {failures}")

@@ -4,27 +4,34 @@ paths, for an A/B of two checkouts on one card: #1
 the smoke run's phase-2 shapes and positions (full-width Yi-6B at 8 slots:
 q [8, 32, 1, 128], a 1024-row cache or 64 pages of 16 per slot, cur_pos
 0, 127, 128, 1023, 2**30, 31, 500, 777; windows 0 and 200) and at a decode
-step's positions (8 slots attending 64 to 320 rows), then #5 / #6 (the MLA
-decode attentions, DeepSeek-V2-Lite at phase 2's positions) and #7 (the
-unfused baseline) as controls, each in float32 and bfloat16. It calls only
-the wrappers that every checkout of the port has, so the same file times
-any of them:
+step's positions (8 slots attending 64 to 320 rows); #5 / #6 (the MLA
+decode attentions, full-width DeepSeek-V2-Lite: q_abs [8, 16, 512], q_rope
+[8, 16, 64], a 1024-row latent / rope cache or 64 pages of 16 per slot
+through a shuffled page table) at the same two sets of positions; #7 (the
+unfused baseline, three launches) at #1's shapes and the same positions;
+each in float32 and bfloat16. It calls only the wrappers that every
+checkout of the port has, so the same file times any of them:
 
     PYTHONPATH=<checkout>/src python <this file>
     PYTHONPATH=src python <this file> --only decode    # cases naming it
     PYTHONPATH=src python <this file> --rows-sweep     # #1 / #4 by kRows
+    PYTHONPATH=src python <this file> --mla-rows-sweep # #5 / #6 by kRows
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 per case: the device time per call (the profiler's kernel time, inputs
-rotated past the 50 MB L2) and its share by ``__global__`` function, the
-host time per call (50 calls enqueued without a synchronise), the
-device time of one ``scaled_dot_product_attention`` call on the same rows
-(masked; paged rows gathered beforehand), and the bound: the bytes the
-function must move (each attended K/V row, q and the output once) over
-3.35 TB/s. ``--rows-sweep`` builds ``csrc/gqa_decode_attn.cu`` once per
-rows-per-block value (``-DGQA_ROWS_PER_BLOCK``, one nvcc each, all started
-together) and times #1 and #4 in bf16 through each build. Needs a CUDA
-device.
+rotated past the 50 MB L2) and its share by ``__global__`` function (#7:
+scores, softmax, wsum; #5 / #6: partial and merge), the host time per
+call (50 calls enqueued without a synchronise), the device time of one
+``scaled_dot_product_attention`` call on the same rows (masked; paged
+rows gathered beforehand; MLA as one KV head of [latent | rope] keys and
+latent values), and the bound: the bytes the function must move (each
+attended row, q and the output once) over 3.35 TB/s (#7 also its own
+traffic: every K/V row and the f32 score matrix written, read, written
+and read). ``--rows-sweep`` builds ``csrc/gqa_decode_attn.cu`` once per
+rows-per-block value (``-DGQA_ROWS_PER_BLOCK``) and ``--mla-rows-sweep``
+``csrc/mla_decode_attn.cu`` (``-DMLA_ROWS_PER_BLOCK``), one nvcc each, all
+started together, and time #1 and #4 (#5 and #6) in bf16 through each
+build. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -41,23 +48,33 @@ HBM_BYTES_PER_S = 3.35e12
 PHASE2_CUR = (0, 127, 128, 1023, 2 ** 30, 31, 500, 777)
 STEP_CUR = (63, 99, 136, 172, 209, 246, 282, 319)   # 64..320 rows
 SWEEP_ROWS = (32, 64, 128, 256)
+MLA_SWEEP_ROWS = (32, 64, 128)
+# one sweep: (source, -D macro, entry points, the wrapper's rows constant)
+SWEEPS = {
+    "gqa": ("gqa_decode_attn.cu", "GQA_ROWS_PER_BLOCK",
+            ("repro_gqa_decode_attn", "repro_gqa_paged_decode_attn"),
+            "GQA_ROWS"),
+    "mla": ("mla_decode_attn.cu", "MLA_ROWS_PER_BLOCK",
+            ("repro_mla_decode_attn", "repro_mla_paged_decode_attn"),
+            "MLA_ROWS"),
+}
 
 
-def _sweep_builds(rows_list):
-    """{rows: ctypes library} of gqa_decode_attn.cu built with kRows =
+def _sweep_builds(kind, rows_list):
+    """{rows: ctypes library} of the sweep's source built with kRows =
     rows, under build/attn_sweep/ of this checkout."""
     from repro_torch.kernels import build
 
+    source, macro, entries, _ = SWEEPS[kind]
     out_root = build.build_root().parent / "attn_sweep"
     out_root.mkdir(parents=True, exist_ok=True)
     nvcc = build.find_nvcc()
     procs = {}
     for rows in rows_list:
-        so = out_root / f"gqa_rows{rows}.so"
+        so = out_root / f"{kind}_rows{rows}.so"
         procs[rows] = (so, subprocess.Popen(
-            [nvcc, *build.NVCC_FLAGS, f"-DGQA_ROWS_PER_BLOCK={rows}",
-             "-shared", "-o", str(so),
-             str(build.CSRC / "gqa_decode_attn.cu")],
+            [nvcc, *build.NVCC_FLAGS, f"-D{macro}={rows}", "-shared", "-o",
+             str(so), str(build.CSRC / source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for rows, (so, proc) in procs.items():
@@ -65,7 +82,7 @@ def _sweep_builds(rows_list):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc (kRows {rows}) failed:\n{log}")
         lib = ctypes.CDLL(str(so))
-        for name in ("repro_gqa_decode_attn", "repro_gqa_paged_decode_attn"):
+        for name in entries:
             fn = getattr(lib, name)
             fn.argtypes = list(build.SIGNATURES[name])
             fn.restype = ctypes.c_int
@@ -86,6 +103,7 @@ def main(argv=None) -> int:
         return 2
     args = sys.argv[1:] if argv is None else argv
     rows_sweep = "--rows-sweep" in args
+    mla_rows_sweep = "--mla-rows-sweep" in args
     only = args[args.index("--only") + 1] if "--only" in args else None
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -213,45 +231,99 @@ def main(argv=None) -> int:
                     pbytes / HBM_BYTES_PER_S * 1e3))
         return out
 
-    def control_cases(dtype):
-        """#5 / #6 (DeepSeek-V2-Lite MLA) and #7 at phase 2's positions:
-        the kernels this design does not touch."""
+    def mla_cases(dtype):
+        """#5 / #6 at full DeepSeek-V2-Lite width, phase 2's and a decode
+        step's positions."""
         es = torch.finfo(dtype).bits // 8
         H, R, DR = 16, 512, 64
-        cur = torch.tensor(PHASE2_CUR, dtype=torch.int32, device=dev)
         n_sets = n_sets_for(B * S * (R + DR) * es)
         qa = [rnd((B, H, R), dtype) for _ in range(n_sets)]
         qr = [rnd((B, H, DR), dtype) for _ in range(n_sets)]
         lat = [rnd((B, S, R), dtype) for _ in range(n_sets)]
         rope = [rnd((B, S, DR), dtype) for _ in range(n_sets)]
-        lp = [x.reshape(N_PAGES, PS, R) for x in lat]
-        rp = [x.reshape(N_PAGES, PS, DR) for x in rope]
-        ident = torch.arange(N_PAGES, dtype=torch.int32,
-                             device=dev).reshape(B, PPS)
-        ok = ops.attended_rows(S, cur, 0, dev)
-        rows = int(ok.sum())
-        mla_bytes = ((rows * (R + DR) + B * H * (R + DR)) * es
-                     + B * H * R * 4 + B * 4)
-        n7 = n_sets_for(2 * B * Hkv * S * D * es)
-        q7 = [rnd((B, Hq, 1, D), dtype) for _ in range(n7)]
-        k7 = [rnd((B, Hkv, S, D), dtype) for _ in range(n7)]
-        return [
-            ("fused_mla_decode_attention", "phase 2 q_abs[8,16,512]",
-             n_sets, lambda i: ops.fused_mla_decode_attention(
-                 qa[i], qr[i], lat[i], rope[i], cur_pos=cur,
-                 head_dim_for_scale=192), None,
-             mla_bytes / HBM_BYTES_PER_S * 1e3),
-            ("fused_paged_mla_decode_attention", "phase 2 pools[512,16,512]",
-             n_sets, lambda i: ops.fused_paged_mla_decode_attention(
-                 qa[i], qr[i], lp[i], rp[i], pages=ident, cur_pos=cur,
-                 head_dim_for_scale=192), None,
-             mla_bytes / HBM_BYTES_PER_S * 1e3),
-            ("unfused_decode_attention", "phase 2 kv[8,4,1024,128]", n7,
-             lambda i: ops.unfused_decode_attention(
-                 q7[i], k7[i], k7[i], cur_pos=cur), None,
-             ((rows * Hkv * 2 * D + 2 * B * Hq * D) * es + B * 4)
-             / HBM_BYTES_PER_S * 1e3),
-        ]
+        # the yardstick: one KV head of keys [latent | rope], values latent
+        qk = [torch.cat([a, r], -1)[:, :, None, :] for a, r in zip(qa, qr)]
+        kk = [torch.cat([a, r], -1)[:, None] for a, r in zip(lat, rope)]
+        vv = [x[:, None] for x in lat]
+        kk, vv = ((kk, vv) if gqa_kw else
+                  ([x.expand(B, H, S, R + DR) for x in kk],
+                   [x.expand(B, H, S, R) for x in vv]))
+        out = []
+        for where, cur_l in (("phase 2", PHASE2_CUR), ("decode step",
+                                                        STEP_CUR)):
+            cur = torch.tensor(cur_l, dtype=torch.int32, device=dev)
+            pages = page_table(cur_l)
+            # the pools hold each slot's rows at its table's pages
+            present = pages >= 0
+            ids = pages[present].long()
+            lp, rp = [], []
+            for la, ro in zip(lat, rope):
+                lpool = torch.zeros((N_PAGES, PS, R), dtype=dtype, device=dev)
+                rpool = torch.zeros((N_PAGES, PS, DR), dtype=dtype,
+                                    device=dev)
+                lpool[ids] = la.reshape(B, PPS, PS, R)[present]
+                rpool[ids] = ro.reshape(B, PPS, PS, DR)[present]
+                lp.append(lpool)
+                rp.append(rpool)
+            for paged in (False, True):
+                ok = (ops.paged_attended_rows(pages, PS, N_PAGES, cur)
+                      if paged else ops.attended_rows(S, cur, 0, dev))
+                rows = int(ok.sum())
+                nbytes = ((rows * (R + DR) + B * H * (R + DR)) * es
+                          + B * H * R * 4 + B * 4
+                          + (B * PPS * 4 if paged else 0))
+                if paged:
+                    name = "fused_paged_mla_decode_attention"
+                    call = (lambda i, c=cur, p=pages:
+                            ops.fused_paged_mla_decode_attention(
+                                qa[i], qr[i], lp[i], rp[i], pages=p,
+                                cur_pos=c, head_dim_for_scale=192))
+                else:
+                    name = "fused_mla_decode_attention"
+                    call = (lambda i, c=cur: ops.fused_mla_decode_attention(
+                        qa[i], qr[i], lat[i], rope[i], cur_pos=c,
+                        head_dim_for_scale=192))
+                out.append((
+                    name, f"{where} cur_pos {list(cur_l)}"
+                    + (f" pools[{N_PAGES},16,512]" if paged else ""),
+                    n_sets, call,
+                    lambda i, m=ok[:, None, None, :]:
+                    F.scaled_dot_product_attention(
+                        qk[i], kk[i], vv[i], attn_mask=m,
+                        scale=1 / math.sqrt(192), **(gqa_kw or {})),
+                    nbytes / HBM_BYTES_PER_S * 1e3))
+        return out
+
+    def unfused_cases(dtype):
+        """#7 at #1's shapes (full Yi-6B width), phase 2's and a decode
+        step's positions: the function's bound (the attended rows) and,
+        in the case's name, the bound of the kernel's own traffic."""
+        es = torch.finfo(dtype).bits // 8
+        n_sets = n_sets_for(2 * B * Hkv * S * D * es)
+        qs = [rnd((B, Hq, 1, D), dtype) for _ in range(n_sets)]
+        ks = [rnd((B, Hkv, S, D), dtype) for _ in range(n_sets)]
+        vs = [rnd((B, Hkv, S, D), dtype) for _ in range(n_sets)]
+        kx, vx = heads(ks), heads(vs)
+        G = Hq // Hkv
+        own = (2 * B * Hkv * S * D * es + 2 * B * Hq * D * es + B * 4
+               + 4 * B * Hkv * G * S * 4)
+        out = []
+        for where, cur_l in (("phase 2", PHASE2_CUR), ("decode step",
+                                                        STEP_CUR)):
+            cur = torch.tensor(cur_l, dtype=torch.int32, device=dev)
+            ok = ops.attended_rows(S, cur, 0, dev)
+            rows = int(ok.sum())
+            out.append((
+                "unfused_decode_attention",
+                f"{where} cur_pos {list(cur_l)} kv[8,4,1024,128]; own "
+                f"traffic {own / HBM_BYTES_PER_S * 1e3:.4f} ms", n_sets,
+                lambda i, c=cur: ops.unfused_decode_attention(
+                    qs[i], ks[i], vs[i], cur_pos=c),
+                lambda i, m=ok[:, None, None, :]: sdpa(qs[i], kx[i], vx[i],
+                                                        m),
+                ((rows * Hkv * 2 * D + 2 * B * Hq * D) * es + B * 4)
+                / HBM_BYTES_PER_S * 1e3))
+        return out
 
     def emit(name, case, dname, n_sets, call, library, bound, **extra):
         ms, fns = device_ms(call, n_sets)
@@ -262,17 +334,22 @@ def main(argv=None) -> int:
                "bound_ms": bound}
         print(json.dumps(row), flush=True)
 
-    if rows_sweep:
-        libs = _sweep_builds(SWEEP_ROWS)
-        keep_lib, keep_rows = ops._build.library, ops.GQA_ROWS
+    for kind, on, rows_list, make in (
+            ("gqa", rows_sweep, SWEEP_ROWS, gqa_cases),
+            ("mla", mla_rows_sweep, MLA_SWEEP_ROWS, mla_cases)):
+        if not on:
+            continue
+        libs = _sweep_builds(kind, rows_list)
+        const = SWEEPS[kind][3]
+        keep_lib, keep_rows = ops._build.library, getattr(ops, const)
         try:
             for dtype in (torch.bfloat16,):
                 dname = str(dtype).replace("torch.", "")
-                cases = gqa_cases(dtype)
+                cases = make(dtype)
                 for rows, lib in libs.items():
                     ops._build.library = (
                         lambda lib=lib: types.SimpleNamespace(lib=lib))
-                    ops.GQA_ROWS = rows
+                    setattr(ops, const, rows)
                     for name, case, n_sets, call, _, bound in cases:
                         if only is None or only in f"{name} {case}":
                             emit(name, case, dname, n_sets, call, None,
@@ -280,12 +357,14 @@ def main(argv=None) -> int:
                 del cases
                 torch.cuda.empty_cache()
         finally:
-            ops._build.library, ops.GQA_ROWS = keep_lib, keep_rows
+            ops._build.library = keep_lib
+            setattr(ops, const, keep_rows)
+    if rows_sweep or mla_rows_sweep:
         return 0
 
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        for make in (gqa_cases, control_cases):
+        for make in (gqa_cases, mla_cases, unfused_cases):
             for name, case, n_sets, call, library, bound in make(dtype):
                 if only is None or only in f"{name} {case}":
                     emit(name, case, dname, n_sets, call, library, bound)

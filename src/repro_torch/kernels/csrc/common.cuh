@@ -155,6 +155,78 @@ __device__ __forceinline__ void ldsm_x4_t(unsigned* r, const void* row) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
 }
 
+// Two f32 values as the bf16 pair of an mma fragment (lo in the low half).
+__device__ __forceinline__ unsigned bf16x2_of(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// The 16 x 16 product A . B^T of two 16-row tiles in shared memory, rows
+// of kp values (kp a multiple of 16; KP = kp at compile time, or 0):
+// A [16][lda], B [16][ldb] in T (row strides in elements, whole 16-byte
+// units). s[n] is the n-th 8-column half in the mma C layout: row g =
+// lane / 4 holds columns n * 8 + 2 (lane % 4), +1 in s[n][0..1], row g + 8
+// in s[n][2..3]. bf16: m16n8k16, both operands by ldmatrix. f32: m16n8k8
+// in the 3xTF32 form (split_tf32; f32's accuracy), an f32 row read by
+// ldmatrix as pairs of 16-bit halves (one float a pair). Four sets of
+// accumulators take the k-steps in turn and are added at the end in a
+// fixed order, so the chain of dependent mma is a quarter as long. Used by
+// the MLA decode attention (q against latent + rope rows) and the unfused
+// attention's scores (q against K rows).
+template <typename T, int KP>
+__device__ __forceinline__ void mma_tile16_scores(float (&s)[2][4],
+                                                  const T* a_s, int lda,
+                                                  const T* b_s, int ldb,
+                                                  int kp, int lane) {
+  constexpr int kStep = sizeof(T) == 4 ? 8 : 16;   // k a step
+  constexpr int kSets = 4;
+  const int lr = lane & 7, lm = lane >> 3;
+  const int k_end = KP ? KP : kp;
+  float acc[kSets][2][4];
+#pragma unroll
+  for (int u = 0; u < kSets; ++u)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[u][n][i] = 0.f;
+  const T* ar = a_s + ((lm & 1) * 8 + lr) * lda;
+  const T* br = b_s + ((lm >> 1) * 8 + lr) * ldb;
+  for (int k0 = 0; k0 < k_end; k0 += kSets * kStep) {
+#pragma unroll
+    for (int u = 0; u < kSets; ++u) {
+      const int kk = k0 + u * kStep;
+      if (kk >= k_end) break;                 // a run-time width's tail
+      if constexpr (sizeof(T) == 4) {
+        unsigned a[4], w[4], ahi[4], alo[4], bhi[4], blo[4];
+        ldsm_x4(a, ar + kk + (lm >> 1) * 4);
+        ldsm_x4(w, br + kk + (lm & 1) * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          split_tf32(__uint_as_float(a[i]), ahi[i], alo[i]);
+          split_tf32(__uint_as_float(w[i]), bhi[i], blo[i]);
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n) mma_tf32(acc[u][n], alo, bhi + 2 * n);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) mma_tf32(acc[u][n], ahi, blo + 2 * n);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) mma_tf32(acc[u][n], ahi, bhi + 2 * n);
+      } else {
+        unsigned a[4], w[4];
+        ldsm_x4(a, ar + kk + (lm >> 1) * 8);
+        ldsm_x4(w, br + kk + (lm & 1) * 8);
+        mma_bf16(acc[u][0], a, w);
+        mma_bf16(acc[u][1], a, w + 2);
+      }
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      s[n][i] = (acc[0][n][i] + acc[1][n][i]) + (acc[2][n][i] + acc[3][n][i]);
+}
+
 // Ask for more than the default 48 KB of dynamic shared memory where a
 // launch needs it (up to the 227 KB a block can have on Hopper).
 template <typename K>
@@ -162,6 +234,23 @@ static inline cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+// allow_smem once per device and size, not at every launch
+// (cudaFuncSetAttribute costs the host more than the launch itself).
+// `allowed` is the launcher's record for this kernel: the bytes opted in
+// on each of the first kSmemDevices devices.
+constexpr int kSmemDevices = 16;
+template <typename K>
+static inline cudaError_t allow_smem_once(K kernel, size_t bytes,
+                                          size_t (&allowed)[kSmemDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kSmemDevices && bytes <= allowed[dev]) return cudaSuccess;
+  e = allow_smem(kernel, bytes);
+  if (e == cudaSuccess && dev < kSmemDevices) allowed[dev] = bytes;
+  return e;
 }
 
 // Deterministic split reduction: y[i] = sum_j partial[j, i] in a fixed

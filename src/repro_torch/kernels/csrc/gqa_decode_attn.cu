@@ -89,7 +89,6 @@ constexpr int kTile = 16;        // rows per warp tile (the mma's n and k)
 constexpr int kStages = 2;       // ring stages per warp
 constexpr int kWarps = 4;        // warps per block, fewer where D is wide
 constexpr int kGroup = 16;       // query heads per block (the mma's m)
-constexpr int kMaxDevices = 16;  // devices whose smem opt-in is remembered
 static_assert(kRows % kTile == 0, "a block takes whole tiles");
 
 struct SlotRows {
@@ -633,17 +632,9 @@ cudaError_t launch_hd(const LaunchRec* r, const T* q, const T* k,
                       int B, int Hkv, int G, int D, int Dv, float scale,
                       int window, int vec, cudaStream_t st) {
   auto kern = gqa_decode_partial_kernel<Rows, T, HD>;
-  // the shared-memory opt-in once per device and size, not every call
-  // (cudaFuncSetAttribute costs the host more than the launch itself)
-  static size_t allowed[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  static size_t allowed[kSmemDevices] = {};   // the opt-in, once
+  cudaError_t e = allow_smem_once(kern, r[0].smem, allowed);
   if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices || (size_t)r[0].smem > allowed[dev]) {
-    e = allow_smem(kern, r[0].smem);
-    if (e != cudaSuccess) return e;
-    if (dev < kMaxDevices) allowed[dev] = r[0].smem;
-  }
   kern<<<grid_of(r[0]), r[0].threads, r[0].smem, st>>>(
       q, k, v, cur_pos, part_m, part_l, part_acc, rows, Hkv, G, D, Dv,
       scale * 1.4426950408889634f, window, vec);

@@ -27,10 +27,10 @@ wrapper: CUDA source (under ``csrc/``) <- the TPU kernel it replaces
 * fused_paged_decode_attention: gqa_decode_attn.cu (the same body, row
   policy PagedRows: rows read through the page table) <-
   decode_attn.py:gqa_paged_decode_attn_2d
-* fused_mla_decode_attention: mla_decode_attn.cu <-
-  decode_attn.py:mla_decode_attn_2d
-* fused_paged_mla_decode_attention: mla_decode_attn.cu (the same body) <-
-  decode_attn.py:mla_paged_decode_attn_2d
+* fused_mla_decode_attention: mla_decode_attn.cu (row policy SlotRows)
+  <- decode_attn.py:mla_decode_attn_2d
+* fused_paged_mla_decode_attention: mla_decode_attn.cu (the same body,
+  row policy PagedRows) <- decode_attn.py:mla_paged_decode_attn_2d
 * unfused_decode_attention: unfused_gqa_decode_attn.cu <-
   decode_attn.py:unfused_gqa_decode_attn_2d (the three-launch baseline of
   the fused decode attention)
@@ -1117,6 +1117,23 @@ def _mla_attend(q_abs, q_rope, lat, rope, ok, scale):
     return torch.einsum("bhs,bsr->bhr", p, lat) / torch.clamp(l, min=1e-30)
 
 
+#: cache rows per block of mla_decode_attn.cu (kRows), counted from row 0
+MLA_ROWS = 64
+
+
+def _mla_partials(B: int, H: int, R: int, length: int, device):
+    """Host side of the MLA decode kernels' grid (#5 over a slot cache
+    of ``length`` rows, #6 over a page table of ``length`` = pps * ps
+    rows): ``ranges`` = ceil(length / MLA_ROWS) blocks of rows per slot,
+    enough for a slot that attends every row, and the f32 scratch of one
+    partial (m, l, acc) per (slot, range, head). Shapes only: which
+    ranges hold rows is worked out from cur_pos on the device, so nothing
+    here reads a tensor."""
+    ranges = -(-length // MLA_ROWS)
+    part_ml, part_acc = _decode_scratch(B * ranges * H, R, device)
+    return ranges, part_ml, part_acc
+
+
 def _check_q_rope(what, q_nope_abs, q_rope):
     B, H, _ = q_nope_abs.shape
     if tuple(q_rope.shape[:2]) != (B, H):
@@ -1168,9 +1185,8 @@ def fused_mla_decode_attention(q_nope_abs: torch.Tensor,
     dt, _ = _kernel_args(what, (q_nope_abs, q_rope, latent_cache,
                                 rope_cache))
     cur = _int32_on(cur_pos, q_nope_abs.device, what, "cur_pos")
-    splits = _splits(-(-S // 32), B, q_nope_abs.device)
-    part_ml, part_acc = _decode_scratch(B * splits * H, R,
-                                        q_nope_abs.device)
+    ranges, part_ml, part_acc = _mla_partials(B, H, R, S,
+                                              q_nope_abs.device)
     out = _out(out, (B, H, R), q_nope_abs, torch.float32)
     err = _build.library().lib.repro_mla_decode_attn(
         q_nope_abs.contiguous().data_ptr(), q_rope.contiguous().data_ptr(),
@@ -1178,10 +1194,10 @@ def fused_mla_decode_attention(q_nope_abs: torch.Tensor,
         rope_cache.contiguous().data_ptr(), cur.data_ptr(),
         part_ml[0].data_ptr(), part_ml[1].data_ptr(), part_acc.data_ptr(),
         out.data_ptr(), B, H, R, Dr, S, 1.0 / math.sqrt(head_dim_for_scale),
-        splits, dt, _stream(q_nope_abs.device))
+        ranges, dt, _stream(q_nope_abs.device))
     _build.check(err, what)
     _launched(fused_mla_decode_attention,
-              ("repro_mla_decode_attn", B, H, R, Dr, splits, 0, dt))
+              ("repro_mla_decode_attn", B, H, R, Dr, ranges, 0, dt))
     return out
 
 
@@ -1242,9 +1258,8 @@ def fused_paged_mla_decode_attention(q_nope_abs: torch.Tensor,
     dt, _ = _kernel_args(what, (q_nope_abs, q_rope, latent_pool, rope_pool))
     pt = _int32_on(pages, q_nope_abs.device, what, "pages")
     cur = _int32_on(cur_pos, q_nope_abs.device, what, "cur_pos")
-    splits = _splits(-(-(pps * ps) // 32), B, q_nope_abs.device)
-    part_ml, part_acc = _decode_scratch(B * splits * H, R,
-                                        q_nope_abs.device)
+    ranges, part_ml, part_acc = _mla_partials(B, H, R, pps * ps,
+                                              q_nope_abs.device)
     out = _out(out, (B, H, R), q_nope_abs, torch.float32)
     err = _build.library().lib.repro_mla_paged_decode_attn(
         q_nope_abs.contiguous().data_ptr(), q_rope.contiguous().data_ptr(),
@@ -1252,11 +1267,11 @@ def fused_paged_mla_decode_attention(q_nope_abs: torch.Tensor,
         rope_pool.contiguous().data_ptr(), pt.data_ptr(), cur.data_ptr(),
         part_ml[0].data_ptr(), part_ml[1].data_ptr(), part_acc.data_ptr(),
         out.data_ptr(), B, H, R, Dr, num_pages, ps, pps,
-        1.0 / math.sqrt(head_dim_for_scale), splits, dt,
+        1.0 / math.sqrt(head_dim_for_scale), ranges, dt,
         _stream(q_nope_abs.device))
     _build.check(err, what)
     _launched(fused_paged_mla_decode_attention,
-              ("repro_mla_decode_attn", B, H, R, Dr, splits, 1, dt))
+              ("repro_mla_decode_attn", B, H, R, Dr, ranges, 1, dt))
     return out
 
 
