@@ -44,7 +44,14 @@ Phases, each printing one line of its own; any failure exits non-zero:
               under a resizing plan, the kernel path against the plain
               path on the same inputs: Yi-6B over the slot cache and over
               the paged pool, DeepSeek-V2-Lite (dense layer + MoE layer)
-              over the slot cache and over the paged pool.
+              over the slot cache and over the paged pool; then both at
+              tp 4 (emulated in one process): a plan that resizes rank 1
+              and migrates 2 blocks from rank 0, kernel path against
+              plain path, and the lossless plan (rank 0 migrating, no
+              resize) on the kernel path against the tp-1 dense step
+              (DeepSeek: against its plain path, since its dense layer is
+              wider than the "ffn" lists, which a source keeps alone, as
+              in the JAX package).
 4. serve    — the port's ServeEngine serves 16 requests at full Yi-6B
               width (32 layers, bf16, random weights from a seed) under
               ZERO-resizing with a contended simulated 8-rank group and
@@ -58,6 +65,16 @@ Phases, each printing one line of its own; any failure exits non-zero:
    paged-profile — eight decode-only steps of the paged engine under
               torch.profiler, as phase 5 (#4 on its main path; phase 5
               must run #1's SlotRows form, this one #4's PagedRows form).
+   semi-serve — the same traffic at full Yi-6B width over a TP group of
+              4 ranks under SEMI (lossless β, 8 simulated ranks, at most 3
+              migration sources): #1 and #3 must launch, a step must
+              migrate, a step may resize only a straggler past the
+              migrating prefix; host wall tokens/s, step wall p50 / p95,
+              peak memory; then 8 of the requests over 4 simulated ranks
+              (no fold, contention p 0.2), where a step must migrate and
+              none may resize; then the uncontended tp-1 dense run of the
+              same traffic, and the share of requests whose tokens agree
+              (information only).
    mla-serve — the same traffic and control at full DeepSeek-V2-Lite
               width (27 layers, MLA + MoE, bf16), over the slot cache
               (#3, #5 must launch) and over a paged pool of 160 pages
@@ -89,6 +106,13 @@ Phases, each printing one line of its own; any failure exits non-zero:
               under torch.profiler: wall vs device time, by family, and
               the block-pruned kernels by name (#2 and #3's down product
               on the tensor-core core, #8-#12; no CUDA-core product left).
+   resume   — checkpoint / resume of full-width ViT-1B cut to 4 layers
+              (f32, tp 4, SEMI, measured times): 8 steps uninterrupted
+              against 4 steps and a resumed run to 8; losses, plans,
+              chi_hat and every parameter and moment after step 8 must be
+              bit-identical; checkpoint bytes, save and load seconds. Then
+              a two-layer full-width Yi-6B f32 checkpoint loaded by
+              ServeEngine(ckpt_dir=...) in bf16 answers two requests.
 
 Then one JSON line of per-kernel numbers (launches of each kernel from
 the run of its path: #1-#3 phase 4, #4 paged-serve, #5 / #6 the two
@@ -162,6 +186,7 @@ def bound_ms(nbytes, flops, dtype_name):
 
 
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script "
@@ -314,7 +339,7 @@ def main():
     per_kernel = {}
 
     def record(name, case, dtype, got, ref, timings, nbytes, flops,
-               representative, phase="kernels"):
+               representative, phase="kernels", tensor_cores=False):
         e, m = errs(got, ref)
         finite = bool(torch.isfinite(got.float()).all())
         tol = (F32_TOL if dtype == torch.float32 else BF16_TOL) * m
@@ -325,7 +350,8 @@ def main():
         t = ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else
                       f"{k} {v}" for k, v in timings.items())
         tc = ""
-        if name in TENSOR_CORE_F32 and dname == "float32" and flops:
+        if (name in TENSOR_CORE_F32 or tensor_cores) \
+                and dname == "float32" and flops:
             tc_ms, tc_by = bound_ms(nbytes, flops, "3xtf32")
             tc = f"; 3xTF32 tensor-core bound {tc_ms:.4f} ms ({tc_by})"
         say(phase, f"{name} {case} {dname}: max|err| {e:.3e} "
@@ -1035,6 +1061,94 @@ def main():
                page_size=16)
     torch.cuda.empty_cache()
 
+    # tp 4 (the group emulated in one process), full width, two layers,
+    # f32, three decode steps from a cache of random rows as above: (a)
+    # rank 1 resized to bucket 3 (#2 launches) and rank 0 the source of a
+    # 2-block migration (#3 runs on it), the kernel path against the plain
+    # path; (b) the lossless plan (every rank at bucket 0, rank 0
+    # migrating) on the kernel path against the tp-1 dense step on the
+    # plain path (``lossless``; else against the same plan's plain path,
+    # the distance to the dense step printed). DeepSeek's routed experts
+    # are expert-parallel: the single-group function. Blocks: Yi's FFN is
+    # 2752 = 64 x 43 wide a rank; DeepSeek's shared experts 704 = 16 x 44
+    def tp4_check(tag, cfg, seed, block, kernels, lossless=True):
+        params = lm_lib.init(torch.Generator(device=dev).manual_seed(seed),
+                             cfg, torch.float32, dev)
+        st = PlanStatic(block_size=block, tp_size=4, mig_shed=(2,))
+        st = dataclasses.replace(
+            st, scope_blocks=scopes_lib.scope_block_table(cfg, st))
+        sc = scopes_lib.control_scopes(cfg, st)
+        prng_ = np.random.default_rng(5)
+        pr = scopes_lib.plan_pri_arrays(
+            sc, {n: prng_.permutation(nb * (1 if scopes_lib.SCOPE_LAYOUT[n]
+                                            == "col" else 4))
+                 for n, nb in sc.items()}, 4, device=dev)
+        start = np.asarray([16, 40, 100, 200, 500, 31, 63, 700], np.int32)
+        gc_ = torch.Generator(device=dev).manual_seed(seed + 1)
+        cache0 = tree_map(
+            lambda t: torch.randn(t.shape, generator=gc_, device=dev) * 0.5,
+            lm_lib.init_cache(cfg, B, 1024, torch.float32, dev))
+        toks = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (B,)).astype(np.int32)).to(dev)
+
+        def run(buckets, use_kernel, tp):
+            cache = tree_map(lambda t: t.clone(), cache0)
+            ctx = (ControlContext(static=st, bucket_by_rank=buckets,
+                                  pri=pr, use_kernel=use_kernel,
+                                  mig_src=[0]) if tp == 4 else None)
+            ck = dataclasses.replace(cfg, fused_decode_attn=use_kernel)
+            ops.reset_launch_counts()
+            with torch.no_grad():
+                for t in range(3):
+                    pos = torch.from_numpy(start + t).to(dev)
+                    if t == 2:
+                        pos[-1] = 2 ** 30
+                    out, cache = lm_lib.decode_step(params, ck, cache, toks,
+                                                    pos, ctx=ctx)
+            torch.cuda.synchronize()
+            return out[:-1].float(), ops.launch_counts()
+
+        (lk, counts), (lp, _) = (run([0, 3, 0, 0], True, 4),
+                                 run([0, 3, 0, 0], False, 4))
+        (ll, _), (ld, _) = run([0, 0, 0, 0], True, 4), run(None, False, 1)
+        e, m = errs(lk, lp)
+        e2, m2 = errs(ll, ld)
+        if lossless:
+            held = (f"lossless plan (buckets 0, source 0) on the kernel path "
+                    f"vs the tp-1 dense step max|err| {e2:.3e} (max|ref| "
+                    f"{m2:.3e})")
+        else:
+            (lq, _) = run([0, 0, 0, 0], False, 4)
+            held = (f"plan with buckets 0 and source 0, kernel path vs "
+                    f"plain path max|err| {errs(ll, lq)[0]:.3e}; vs the "
+                    f"tp-1 dense step {e2:.3e} (information only)")
+            e2, m2 = errs(ll, lq)
+        ok = (bool(torch.isfinite(lk).all()) and bool(
+            torch.isfinite(ll).all()) and e <= F32_TOL * m
+            and e2 <= F32_TOL * m2 and all(counts[k] > 0 for k in kernels))
+        say("reference", f"{tag}, 2 layers, f32, tp 4 (block {block}): "
+            f"buckets [0,3,0,0] + source 0 shedding 2 blocks, kernel path "
+            f"vs plain path logits max|err| {e:.3e} (max|ref| {m:.3e}); "
+            f"{held}; launches {({k: counts[k] for k in kernels})} "
+            f"{'ok' if ok else 'FAIL'}")
+        del params, cache0
+        if not ok:
+            raise SystemExit(f"reference check failed: {tag} at tp 4")
+
+    tp4_check("yi-6b width, slot cache", cfg2, 14, 64,
+              ("block_pruned_matmul", "fused_pruned_ffn",
+               "fused_decode_attention"))
+    # DeepSeek: the MLA projections are no controlled scope, so #2 has no
+    # call of its own there; its dense layer (171 blocks a rank) is wider
+    # than the "ffn" scope's 44-block lists, so a source keeps the lists'
+    # ids of it and exports the lists' last ids (layers/tp_linear.py), as
+    # the JAX package does: no plan with a source is lossless there
+    tp4_check("deepseek-v2-lite width (dense layer + MoE layer), slot "
+              "cache", ds2, 15, 16,
+              ("fused_pruned_ffn", "fused_mla_decode_attention"),
+              lossless=False)
+    torch.cuda.empty_cache()
+
     # ---------------------------------------------------------------- 4
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1182,10 +1296,12 @@ def main():
     # 16). 60% of 8 x 64 pages would never run dry here (a request holds
     # at most (256 + 64) / 16 = 20 pages, 8 slots at most 160), so the pool
     # is 96 pages, 60% of that peak: the engine must preempt
-    def serve_run(tag, arch, model_cfg, control, path_kernels, **kw):
-        """Serve the 16 requests; every launch count is set to 0 just
+    def serve_run(tag, arch, model_cfg, control, path_kernels,
+                  expect_resize=True, n_req=16, **kw):
+        """Serve the first ``n_req`` of the 16 requests; every launch count is set to 0 just
         before the run and read just after, and each kernel of the path
-        must have launched."""
+        must have launched (and, with ``expect_resize``, some step must
+        have run a resized plan)."""
         free()
         torch.cuda.reset_peak_memory_stats()
         t_init = time.perf_counter()
@@ -1198,7 +1314,7 @@ def main():
         rs = [Request(uid=i, prompt=rq.integers(
                   0, model_cfg.vocab_size, (int(rq.integers(64, 257)),))
                   .astype(np.int32), max_new_tokens=64, arrival_step=3 * i)
-              for i in range(16)]
+              for i in range(16)][:n_req]
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         cs = e.run(rs)
@@ -1210,7 +1326,7 @@ def main():
         walls_ = np.asarray([h["wall_s"] for h in e.history])
         resized_ = sum(1 for h in e.history if h.get("max_bucket", 0) > 0)
         probs = []
-        if sorted(c.uid for c in cs) != list(range(16)):
+        if sorted(c.uid for c in cs) != list(range(n_req)):
             probs.append("not every request completed")
         if any(len(c.tokens) != 64 for c in cs):
             probs.append("a request stopped short of 64 tokens")
@@ -1222,9 +1338,9 @@ def main():
         for k in path_kernels:
             if counts[k] <= 0:
                 probs.append(f"{k} never launched")
-        if resized_ == 0:
+        if expect_resize and resized_ == 0:
             probs.append("no step ran a resized plan")
-        say(tag, f"16 requests, {n_tok_} tokens, {len(e.history)} steps in "
+        say(tag, f"{n_req} requests, {n_tok_} tokens, {len(e.history)} steps in "
             f"{wall_:.2f} s wall (engine built in {t_init:.1f} s): "
             f"{n_tok_ / wall_:.1f} tokens/s wall; step wall p50 "
             f"{np.percentile(walls_, 50) * 1e3:.2f} ms, p95 "
@@ -1260,6 +1376,84 @@ def main():
            "active slots", gwall_ms, gdev_ms, grows, family)
     del eng
     free()
+
+    # ------------------------------------------------------ SEMI serving
+    # the same traffic at full Yi-6B width over a TP group of 4 ranks
+    # (emulated in one process) under SEMI with the lossless β-policy: up
+    # to 3 of the 8 simulated ranks' stragglers migrate their FFN blocks
+    # to the helpers (folded onto the 4 real ranks), so #3 runs on each
+    # source rank. A straggler past the migrating prefix resizes by design
+    # (Eq. 3, capped at max_sources): with 8 simulated ranks at p 0.15
+    # four straggle at once every ~50 steps; such a step must have more
+    # stragglers than sources. Block 64: the FFN is 2752 = 64 x 43 wide a
+    # rank. Then the same traffic through the uncontended tp-1 dense
+    # engine, for the share of requests whose tokens agree (bf16 sums in
+    # another order: information only; exactness is the CPU tests')
+    control_semi = ControlConfig(
+        mode="semi", hetero_kind="contention", chi=4.0, sim_ranks=8,
+        max_sources=3, beta_policy="lossless", block_size=64,
+        fused_attention=True, use_kernel=True, seed=0)
+    eng, semi_tokens, semi_launches, problems = serve_run(
+        "semi-serve", "yi-6b", full, control_semi,
+        ("fused_decode_attention", "fused_pruned_ffn"),
+        expect_resize=False, tp=4)
+    migrating = [h for h in eng.history if h.get("mig_srcs")]
+    resized_semi = [h for h in eng.history if h.get("max_bucket", 0) > 0]
+    past_prefix = [h for h in resized_semi
+                   if len(h["stragglers"])
+                   > len(h.get("planned_mig_srcs", ()))]
+    if not migrating:
+        problems.append("no step executed a migration")
+    if len(past_prefix) != len(resized_semi):
+        problems.append("a step resized a straggler it could have migrated")
+    if any(max(h["mig_shed"]) <= 0 for h in migrating):
+        problems.append("an executed migration shed no block")
+    say("semi-serve", f"tp 4, SEMI lossless, sim_ranks 8, max_sources 3: "
+        f"{len(migrating)} of {len(eng.history)} steps migrated (sources "
+        f"{sorted({s for h in migrating for s in h['mig_srcs']})}, sheds "
+        f"{sorted({m for h in migrating for m in h['mig_shed']})}); "
+        f"{len(resized_semi)} steps resized, each with more stragglers "
+        f"than migrating sources; trace counts {eng.trace_counts()}")
+    del eng
+    free()
+    if problems:
+        raise SystemExit(f"SEMI serve check failed: {problems}")
+    # over 4 simulated ranks (no fold, as the CPU tests' scenario) at most
+    # 3 straggle while one helps: every straggler migrates, no step may
+    # resize. The first 8 requests
+    eng, _, _, problems = serve_run(
+        "semi-serve", "yi-6b", full,
+        dataclasses.replace(control_semi, sim_ranks=4, contention_p=0.2),
+        ("fused_decode_attention", "fused_pruned_ffn"),
+        expect_resize=False, n_req=8, tp=4)
+    migrating = [h for h in eng.history if h.get("mig_srcs")]
+    resized_semi = [h for h in eng.history if h.get("max_bucket", 0) > 0]
+    if not migrating:
+        problems.append("no step executed a migration")
+    if resized_semi:
+        problems.append(f"{len(resized_semi)} steps resized")
+    say("semi-serve", f"tp 4, SEMI lossless, sim_ranks 4, max_sources 3, "
+        f"contention p 0.2: {len(migrating)} of {len(eng.history)} steps "
+        f"migrated, {len(resized_semi)} resized")
+    del eng
+    free()
+    if problems:
+        raise SystemExit(f"SEMI serve check (4 simulated ranks) failed: "
+                         f"{problems}")
+    eng, dense_tokens, _, problems = serve_run(
+        "semi-serve", "yi-6b", full, ControlConfig(fused_attention=True),
+        ("fused_decode_attention",), expect_resize=False)
+    prefix = [next((j for j, (a, b) in enumerate(zip(
+        semi_tokens[u], dense_tokens[u])) if a != b), 64)
+        for u in semi_tokens]
+    say("semi-serve", f"requests whose tokens agree with the uncontended "
+        f"tp-1 dense run: {agreement(semi_tokens, dense_tokens):.3f}; tokens "
+        f"before the first difference, per request: {prefix} (bf16 on the "
+        "card; information only)")
+    del eng
+    free()
+    if problems:
+        raise SystemExit(f"dense tp-1 serve check failed: {problems}")
 
     # ------------------------------------------------------ MLA + MoE
     # full-width DeepSeek-V2-Lite (27 layers: a dense first layer, 26 MoE
@@ -1516,7 +1710,8 @@ def main():
         record("fused_pruned_ffn", "train shape x[520,2048] w_up_r/w_down_r "
                "[2048,2048] gelu block 8 keep 30/256", dtype, got, ref,
                timings, (2 * M_T * D_V + 2 * D_V * C) * es,
-               2 * 2 * M_T * D_V * C, False, "grad-kernels")
+               2 * 2 * M_T * D_V * C, False, "grad-kernels",
+               tensor_cores=True)      # its down product above 16 rows
         del xs, wus, wds
 
     # block 128 at a small shape: compact modes and an unsorted keep list
@@ -1756,6 +1951,130 @@ def main():
             f"{calls / n_prof:.0f}/step  {name[:90]}")
     del mfull, opt
 
+    # ------------------------------------------------------------- resume
+    # checkpoint / resume at full ViT-1B width (d 2048, d_ff 8192, 16
+    # heads; f32; tp 4; SEMI with a static χ 4 straggler; times="measured",
+    # so the estimator's window rides in the checkpoint), depth cut to 4 of
+    # 24 layers so that three full-state saves (about 2.4 GB each: params
+    # and both AdamW moments) fit the disk: N steps uninterrupted against
+    # k steps, a "crash", and a fresh run_training(..., resume=True) up to
+    # N. Losses, signatures, buckets, mig_shed and chi_hat must be
+    # bit-identical, and so must every parameter and moment after step N
+    # (the two runs' final checkpoints). Then the serve engine's warm load:
+    # a two-layer, full-width Yi-6B written by store.save in f32, loaded
+    # through ServeEngine(ckpt_dir=...) in bf16, answers two requests
+    import shutil
+    from repro_torch import bridge
+    from repro_torch.checkpoint import store as ckpt_store
+    free()
+    ck_root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ck_root, ignore_errors=True)
+    vit_cut = dataclasses.replace(vit_full, num_layers=4,
+                                  name="vit-1b-4layer")
+    n_res, k_res = 8, 4
+    kw_res = dict(model_cfg=vit_cut, tp=4, control_mode="semi",
+                  hetero_kind="static", chi=4.0, mig_blocks=2,
+                  times="measured", use_kernel=True, batch=8, lr=lr_full,
+                  seed=0, quiet=True, device="cuda", ckpt_every=1000)
+    t0 = time.perf_counter()
+    h_full = run_training("vit-1b", steps=n_res,
+                          ckpt_dir=str(ck_root / "full"), **kw_res)
+    t_full = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    h_first = run_training("vit-1b", steps=k_res,
+                           ckpt_dir=str(ck_root / "cut"), **kw_res)
+    t_first = time.perf_counter() - t0
+    ck_bytes = sum(f.stat().st_size for f in (ck_root / "cut").iterdir())
+    # the save alone: the state of step k written once more, timed
+    saved = ckpt_store.load_arrays(str(ck_root / "cut"), k_res)
+    t0 = time.perf_counter()
+    ckpt_store.save(str(ck_root / "again"), k_res, saved)
+    t_save = time.perf_counter() - t0
+    del saved
+    shutil.rmtree(ck_root / "again")
+    t0 = time.perf_counter()
+    model_like = vit_lib.init(None, vit_cut, torch.float32, dev)
+    bridge.load_vit_params(model_like, ckpt_store.restore(
+        str(ck_root / "cut"), k_res, bridge.vit_params_to_numpy(model_like),
+        prefix="params"))
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    del model_like
+    t0 = time.perf_counter()
+    h_res = run_training("vit-1b", steps=n_res, resume=True,
+                         ckpt_dir=str(ck_root / "cut"), **kw_res)
+    t_res = time.perf_counter() - t0
+    problems = []
+    for key in ("loss", "signatures", "buckets", "mig_shed"):
+        if h_first[key] + h_res[key] != h_full[key]:
+            problems.append(f"{key} differs after the resume")
+    if h_res["chi_hat"] != h_full["chi_hat"]:
+        problems.append("chi_hat differs after the resume")
+    if not any(srcs for srcs, _ in h_full["mig_shed"]):
+        problems.append("no step migrated")
+    end_full = ckpt_store.load_arrays(str(ck_root / "full"), n_res)
+    end_res = ckpt_store.load_arrays(str(ck_root / "cut"), n_res)
+
+    def leaves(t, p=""):
+        if isinstance(t, dict):
+            for k_, v in t.items():
+                yield from leaves(v, f"{p}/{k_}")
+        else:
+            yield p, t
+    lf, lr_ = dict(leaves(end_full)), dict(leaves(end_res))
+    differ = [k_ for k_ in lf if k_ not in lr_
+              or lf[k_].tobytes() != lr_[k_].tobytes()]
+    if differ or lf.keys() != lr_.keys():
+        problems.append(f"{len(differ)} of {len(lf)} leaves differ after "
+                        f"step {n_res}: {differ[:4]}")
+    say("resume", f"vit-1b full width, depth 4 of 24 (d 2048, d_ff 8192, "
+        f"f32), tp 4 SEMI static chi 4, measured: {n_res} steps "
+        f"uninterrupted ({t_full:.2f} s) vs {k_res} ({t_first:.2f} s) + "
+        f"resume to {n_res} ({t_res:.2f} s); checkpoint {ck_bytes} bytes "
+        f"({ck_bytes / 2**30:.2f} GiB), save {t_save:.2f} s, params load "
+        f"{t_load:.2f} s; losses, signatures, buckets, mig_shed, chi_hat "
+        f"and {len(lf)} leaves after step {n_res} "
+        f"{'bit-identical' if not problems else 'DIFFER'}; migrating "
+        f"steps {sum(1 for srcs, _ in h_full['mig_shed'] if srcs)}")
+    del end_full, end_res, lf, lr_
+    shutil.rmtree(ck_root, ignore_errors=True)
+    if problems:
+        raise SystemExit(f"resume check failed: {problems}")
+
+    # the warm load: two-layer, full-width Yi-6B in f32 through the store
+    src = lm_lib.init(torch.Generator(device=dev).manual_seed(21), cfg2,
+                      torch.float32, dev)
+    t0 = time.perf_counter()
+    ckpt_store.save(str(ck_root / "yi"), 1, bridge.params_to_numpy(src))
+    t_save = time.perf_counter() - t0
+    yi_bytes = sum(f.stat().st_size for f in (ck_root / "yi").iterdir())
+    t0 = time.perf_counter()
+    eng = ServeEngine("yi-6b", model_cfg=cfg2, num_slots=2, max_len=64,
+                      param_dtype="bfloat16", ckpt_dir=str(ck_root / "yi"),
+                      control=ControlConfig(fused_attention=True),
+                      device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    same = all(torch.equal(a, b.to(a.dtype)) for a, b in zip(
+        eng.params.parameters(), src.parameters()))
+    rq = np.random.default_rng(4)
+    cs = eng.run([Request(uid=i, prompt=rq.integers(0, VOCAB, (8,)).astype(
+        np.int32), max_new_tokens=8) for i in range(2)])
+    eng.close()
+    ok = (same and len(cs) == 2 and all(len(c.tokens) == 8 for c in cs)
+          and all(((c.tokens >= 0) & (c.tokens < VOCAB)).all() for c in cs))
+    say("resume", f"warm load: yi-6b full width, 2 layers, f32 checkpoint "
+        f"{yi_bytes} bytes ({yi_bytes / 2**30:.2f} GiB) saved in "
+        f"{t_save:.2f} s; ServeEngine(ckpt_dir=...) built and loaded in bf16 "
+        f"in {t_load:.2f} s; params equal the saved ones cast to bf16: "
+        f"{same}; 2 requests answered: {[c.tokens.tolist() for c in cs]} "
+        f"{'ok' if ok else 'FAIL'}")
+    del eng, src
+    shutil.rmtree(ck_root, ignore_errors=True)
+    free()
+    if not ok:
+        raise SystemExit("warm load check failed")
+
     # ---------------------------------------------------------------- out
     # launches: the serving kernels from the serve run (phase 4), the
     # backward family from the train run (phase 8)
@@ -1785,6 +2104,8 @@ def main():
                         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                         "bound_by": k["bound_by"],
                         "library_ms": k["library_ms"]})
+    say("done", f"every phase passed in {time.perf_counter() - t_start:.1f}"
+        " s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

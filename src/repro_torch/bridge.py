@@ -18,7 +18,7 @@ carry them the same way.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -94,26 +94,37 @@ def _arr(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().cpu().numpy()
 
 
-def _block_tree(blk) -> Dict[str, Any]:
+def _shape_of(t: torch.Tensor) -> np.ndarray:
+    """A float32 array of ``t``'s shape that holds no memory (a template
+    leaf: only its shape and dtype are read)."""
+    return np.broadcast_to(np.float32(0), tuple(t.shape))
+
+
+def _block_tree(blk, leaf=_arr) -> Dict[str, Any]:
     out: Dict[str, Any] = {}
     for name, param in blk.named_parameters():
-        *path, leaf = name.split(".")
+        *path, last = name.split(".")
         node = out
         for part in path:
             node = node.setdefault(part, {})
-        node[leaf] = _arr(param)
+        node[last] = leaf(param)
     return out
 
 
-def _stacked(trees):
+def _stacked(trees, stack=np.stack):
     if isinstance(trees[0], dict):
-        return {k: _stacked([t[k] for t in trees]) for k in trees[0]}
-    return np.stack(trees)
+        return {k: _stacked([t[k] for t in trees], stack) for k in trees[0]}
+    return stack(trees)
 
 
-def _dump_stack(layers, num_prefix: int = 0) -> Dict[str, Any]:
-    trees = [_block_tree(b) for b in layers]
-    out: Dict[str, Any] = {"scan": (_stacked(trees[num_prefix:]),)}
+def _stack_shapes(leaves):
+    return np.broadcast_to(np.float32(0), (len(leaves),) + leaves[0].shape)
+
+
+def _dump_stack(layers, num_prefix: int = 0, leaf=_arr,
+                stack=np.stack) -> Dict[str, Any]:
+    trees = [_block_tree(b, leaf) for b in layers]
+    out: Dict[str, Any] = {"scan": (_stacked(trees[num_prefix:], stack),)}
     if num_prefix:
         out["prefix"] = trees[:num_prefix]
     return out
@@ -122,7 +133,12 @@ def _dump_stack(layers, num_prefix: int = 0) -> Dict[str, Any]:
 def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
                     device="cuda", dtype=torch.float32) -> lm_lib.LM:
     """JAX LM parameters (numpy leaves) -> the port's LM on ``device``."""
-    p = lm_lib.LM(cfg, dtype, device)
+    return load_params(lm_lib.LM(cfg, dtype, device), np_tree)
+
+
+def load_params(p: lm_lib.LM, np_tree: Dict[str, Any]) -> lm_lib.LM:
+    """Copy JAX-layout LM parameters (numpy leaves) into ``p`` in place,
+    cast to ``p``'s dtype."""
     _set(p.embed, np_tree["embed"], "embed")
     _set(p.norm_f, np_tree["norm_f"], "norm_f")
     if p.head is not None:
@@ -135,10 +151,20 @@ def params_to_numpy(p: lm_lib.LM) -> Dict[str, Any]:
     """The port's LM -> the JAX tree layout, as float32 numpy arrays
     (the dense prefix as a list, the repeated layers' leaves stacked on a
     leading axis)."""
-    out = {"embed": _arr(p.embed), "norm_f": _arr(p.norm_f),
-           "stack": _dump_stack(p.layers, p.num_prefix_layers)}
+    return _lm_tree(p, _arr, np.stack)
+
+
+def params_template(p: lm_lib.LM) -> Dict[str, Any]:
+    """:func:`params_to_numpy`'s tree with float32 leaves that hold no
+    memory: the ``like`` of a checkpoint restore."""
+    return _lm_tree(p, _shape_of, _stack_shapes)
+
+
+def _lm_tree(p: lm_lib.LM, leaf, stack) -> Dict[str, Any]:
+    out = {"embed": leaf(p.embed), "norm_f": leaf(p.norm_f),
+           "stack": _dump_stack(p.layers, p.num_prefix_layers, leaf, stack)}
     if p.head is not None:
-        out["head"] = _arr(p.head)
+        out["head"] = leaf(p.head)
     return out
 
 
@@ -148,7 +174,11 @@ _VIT_TOP = ("patch_proj", "cls", "pos", "norm_f", "head")
 def vit_params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
                         device="cuda", dtype=torch.float32) -> vit_lib.ViT:
     """JAX ViT parameters (numpy leaves) -> the port's ViT on ``device``."""
-    p = vit_lib.init(None, cfg, dtype, device)
+    return load_vit_params(vit_lib.init(None, cfg, dtype, device), np_tree)
+
+
+def load_vit_params(p: vit_lib.ViT, np_tree: Dict[str, Any]) -> vit_lib.ViT:
+    """Copy JAX-layout ViT parameters (numpy leaves) into ``p`` in place."""
     for name in _VIT_TOP:
         _set(getattr(p, name), np_tree[name], name)
     _load_stack(p.layers, np_tree["stack"])
@@ -176,7 +206,17 @@ def adamw_state_from_jax(np_state, cfg: ModelConfig,
                                 nu=named(nu))
 
 
-def adamw_state_to_numpy(state: adamw_lib.AdamWState, cfg: ModelConfig):
+class AdamWArrays(NamedTuple):
+    """The reference's ``AdamWState`` fields as numpy trees: a named tuple
+    of the same field names, so a checkpoint keys it ``opt/step``,
+    ``opt/mu/...``, ``opt/nu/...`` as the reference's store does."""
+    step: np.ndarray
+    mu: Dict[str, Any]
+    nu: Dict[str, Any]
+
+
+def adamw_state_to_numpy(state: adamw_lib.AdamWState,
+                         cfg: ModelConfig) -> AdamWArrays:
     """The port's AdamW state of a ViT -> ``(step, mu, nu)`` in the
     reference's tree layout, as numpy arrays."""
     def tree(moments):
@@ -185,5 +225,5 @@ def adamw_state_to_numpy(state: adamw_lib.AdamWState, cfg: ModelConfig):
             for n, t in m.named_parameters():
                 t.copy_(moments[n].detach().cpu())
         return vit_params_to_numpy(m)
-    return (np.asarray(state.step, np.int32), tree(state.mu),
-            tree(state.nu))
+    return AdamWArrays(np.asarray(state.step, np.int32), tree(state.mu),
+                       tree(state.nu))

@@ -24,8 +24,10 @@ historical convention, which its pinned trajectories depend on).
 ``clamp_sheds`` clamps projected shed counts to the real FFN shard
 (source keeps >= 1 block), as the serve engine asks; the trainer keeps
 the loud ``ValueError`` of its ``mig_blocks`` cap instead. The
-reference's ragged shard geometry and checkpoint round-trip come with
-later slices.
+reference's ragged shard geometry comes with a later slice.
+:meth:`state_arrays` / :meth:`state_meta` / :meth:`load_state` carry the
+controller's, the estimator's and the host RNG streams' state through a
+checkpoint, as the reference's do.
 
 Plan tensors: ``bucket_by_rank`` and ``mig_src`` stay on the host (the
 layers read each rank's bucket and each slot's source rank as Python
@@ -36,6 +38,7 @@ the kernels read their keep ids.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -289,3 +292,65 @@ class ControlPlane:
             out["estimator_updates"] = self.estimator.updates
             out["estimator_rejected"] = self.estimator.rejected_total
         return out
+
+    # -- checkpoint / resume --------------------------------------------------
+    def state_arrays(self) -> Dict[str, Any]:
+        """Numeric control-plane state as a tree of numpy arrays
+        (checkpointed alongside params/opt in the same npz)."""
+        out: Dict[str, Any] = {}
+        if self.controller is not None:
+            c = self.controller.state_arrays()
+            if c:
+                out["controller"] = c
+        if self.estimator is not None:
+            out["estimator"] = self.estimator.state_arrays()
+        return out
+
+    def state_meta(self) -> Dict[str, Any]:
+        """JSON-able control-plane state (host RNG streams: their 128-bit
+        PCG64 state words don't fit numpy dtypes)."""
+        meta: Dict[str, Any] = {
+            "measure_rng": self.measure_rng.bit_generator.state}
+        if self.controller is not None:
+            meta["controller_rng"] = self.controller.rng.bit_generator.state
+        return meta
+
+    def load_state(self, arrays: Optional[Dict[str, Any]],
+                   meta: Optional[Dict[str, Any]]) -> None:
+        """Restore :meth:`state_arrays` + :meth:`state_meta` output.
+
+        Missing keys keep the fresh-start default (old checkpoints stay
+        loadable). The converse — checkpointed state the CURRENT config
+        cannot host (e.g. estimator state resumed without
+        ``times=measured``) — voids the bit-identical-resume contract,
+        so it warns loudly instead of being dropped in silence."""
+        arrays = arrays or {}
+        meta = meta or {}
+        if "controller" in arrays:
+            if self.controller is not None:
+                self.controller.load_state_arrays(arrays["controller"])
+            else:
+                warnings.warn(
+                    "checkpoint carries controller state but workload "
+                    "control is disabled in this run — the control "
+                    "trajectory will NOT match the interrupted run",
+                    stacklevel=2)
+        if "estimator" in arrays:
+            if self.estimator is not None:
+                self.estimator.load_state_arrays(arrays["estimator"])
+            else:
+                warnings.warn(
+                    "checkpoint carries estimator state but this run is "
+                    "not in times='measured' mode — the control "
+                    "trajectory will NOT match the interrupted run",
+                    stacklevel=2)
+        if "measure_rng" in meta:
+            self.measure_rng.bit_generator.state = meta["measure_rng"]
+        if "controller_rng" in meta:
+            if self.controller is not None:
+                self.controller.rng.bit_generator.state = \
+                    meta["controller_rng"]
+            elif "controller" not in arrays:
+                warnings.warn(
+                    "checkpoint carries controller RNG state but workload "
+                    "control is disabled in this run", stacklevel=2)

@@ -327,8 +327,10 @@ def pruned_matmul_dx(dy: torch.Tensor, w: torch.Tensor, order: torch.Tensor,
     M, N = dy.shape
     y = _out(out, (M, (kb if compact_out else nb) * block), dy)
     splits, partial = _tc_partials(M, kb * block, N, dy.device)
+    # copies held to the launch (a dropped one's memory can go to the next)
+    dy_c, w_c = dy.contiguous(), w.contiguous()
     err = _build.library().lib.repro_pruned_matmul_dx(
-        dy.contiguous().data_ptr(), w.contiguous().data_ptr(),
+        dy_c.data_ptr(), w_c.data_ptr(),
         idx.data_ptr(), partial.data_ptr(), y.data_ptr(), M, N, nb, kb,
         block, int(compact_out), splits, dt, _stream(dy.device))
     _build.check(err, what)
@@ -375,8 +377,10 @@ def pruned_matmul_dw(x: torch.Tensor, dy: torch.Tensor, order: torch.Tensor,
     M, N = dy.shape
     y = _out(out, (nb * block, N), dy)
     splits, partial = _dw_partials(kb * block, N, M, dy.device)
+    # copies held to the launch (a dropped one's memory can go to the next)
+    x_c, dy_c = x.contiguous(), dy.contiguous()
     err = _build.library().lib.repro_pruned_matmul_dw(
-        x.contiguous().data_ptr(), dy.contiguous().data_ptr(),
+        x_c.data_ptr(), dy_c.data_ptr(),
         idx.data_ptr(), partial.data_ptr(), y.data_ptr(), M, N, nb, kb,
         block, int(x_compact), splits, dt, _stream(dy.device))
     _build.check(err, what)
@@ -417,8 +421,10 @@ def outpruned_matmul(x: torch.Tensor, w: torch.Tensor, keep_idx: torch.Tensor,
     (M, K), H = x.shape, w.shape[1]
     y = _out(out, (M, kb * block), x)
     splits, partial = _tc_partials(M, kb * block, K, x.device)
+    # copies held to the launch (a dropped one's memory can go to the next)
+    x_c, w_c = x.contiguous(), w.contiguous()
     err = _build.library().lib.repro_outpruned_matmul(
-        x.contiguous().data_ptr(), w.contiguous().data_ptr(), idx.data_ptr(),
+        x_c.data_ptr(), w_c.data_ptr(), idx.data_ptr(),
         partial.data_ptr(), y.data_ptr(), M, K, H, kb, block, splits, dt,
         _stream(x.device))
     _build.check(err, what)
@@ -454,8 +460,10 @@ def outpruned_matmul_dx(dyc: torch.Tensor, w: torch.Tensor,
     M, (K, H) = dyc.shape[0], w.shape
     y = _out(out, (M, K), dyc)
     splits, partial = _tc_partials(M, K, kb * block, dyc.device, direct=True)
+    # copies held to the launch (a dropped one's memory can go to the next)
+    dyc_c, w_c = dyc.contiguous(), w.contiguous()
     err = _build.library().lib.repro_outpruned_matmul_dx(
-        dyc.contiguous().data_ptr(), w.contiguous().data_ptr(),
+        dyc_c.data_ptr(), w_c.data_ptr(),
         idx.data_ptr(), partial.data_ptr(), y.data_ptr(), M, K, H, kb, block,
         splits, dt, _stream(dyc.device))
     _build.check(err, what)
@@ -496,8 +504,10 @@ def outpruned_matmul_dw(x: torch.Tensor, dyc: torch.Tensor,
     M, K = x.shape
     y = _out(out, (K, nb * block), dyc)
     splits, partial = _dw_partials(K, kb * block, M, dyc.device)
+    # copies held to the launch (a dropped one's memory can go to the next)
+    x_c, dyc_c = x.contiguous(), dyc.contiguous()
     err = _build.library().lib.repro_outpruned_matmul_dw(
-        x.contiguous().data_ptr(), dyc.contiguous().data_ptr(),
+        x_c.data_ptr(), dyc_c.data_ptr(),
         idx.data_ptr(), partial.data_ptr(), y.data_ptr(), M, K, nb, kb,
         block, splits, dt, _stream(dyc.device))
     _build.check(err, what)
@@ -987,9 +997,12 @@ def unfused_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     scores = torch.empty((B, Hkv, G, S), dtype=torch.float32,
                          device=q.device)
     out = _out(out, (B, Hq, 1, Dv), q)
+    # copies held to the launch (a dropped one's memory can go to the next)
+    q_c, k_cache_c, v_cache_c = (q.contiguous(), k_cache.contiguous(),
+                                 v_cache.contiguous())
     err = _build.library().lib.repro_unfused_gqa_decode_attn(
-        q.contiguous().data_ptr(), k_cache.contiguous().data_ptr(),
-        v_cache.contiguous().data_ptr(), cur.data_ptr(), scores.data_ptr(),
+        q_c.data_ptr(), k_cache_c.data_ptr(),
+        v_cache_c.data_ptr(), cur.data_ptr(), scores.data_ptr(),
         out.data_ptr(), B, Hkv, G, S, D, Dv, 1.0 / math.sqrt(D), int(window),
         dt, _stream(q.device))
     _build.check(err, what)
@@ -1076,9 +1089,12 @@ def fused_paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     ranges, part_ml, part_acc = _gqa_partials(B, Hkv, G, pps * ps, Dv,
                                               q.device)
     out = _out(out, (B, Hq, 1, Dv), q)
+    # copies held to the launch (a dropped one's memory can go to the next)
+    q_c, k_pool_c, v_pool_c = (q.contiguous(), k_pool.contiguous(),
+                               v_pool.contiguous())
     err = _build.library().lib.repro_gqa_paged_decode_attn(
-        q.contiguous().data_ptr(), k_pool.contiguous().data_ptr(),
-        v_pool.contiguous().data_ptr(), pt.data_ptr(), cur.data_ptr(),
+        q_c.data_ptr(), k_pool_c.data_ptr(),
+        v_pool_c.data_ptr(), pt.data_ptr(), cur.data_ptr(),
         part_ml[0].data_ptr(), part_ml[1].data_ptr(), part_acc.data_ptr(),
         out.data_ptr(), B, Hkv, G, num_pages, ps, pps, D, Dv,
         1.0 / math.sqrt(D), int(window), ranges, dt, _stream(q.device))
@@ -1188,10 +1204,14 @@ def fused_mla_decode_attention(q_nope_abs: torch.Tensor,
     ranges, part_ml, part_acc = _mla_partials(B, H, R, S,
                                               q_nope_abs.device)
     out = _out(out, (B, H, R), q_nope_abs, torch.float32)
+    # copies held to the launch (a dropped one's memory can go to the next)
+    q_nope_abs_c, q_rope_c, latent_cache_c, rope_cache_c = (
+        q_nope_abs.contiguous(), q_rope.contiguous(),
+        latent_cache.contiguous(), rope_cache.contiguous())
     err = _build.library().lib.repro_mla_decode_attn(
-        q_nope_abs.contiguous().data_ptr(), q_rope.contiguous().data_ptr(),
-        latent_cache.contiguous().data_ptr(),
-        rope_cache.contiguous().data_ptr(), cur.data_ptr(),
+        q_nope_abs_c.data_ptr(), q_rope_c.data_ptr(),
+        latent_cache_c.data_ptr(),
+        rope_cache_c.data_ptr(), cur.data_ptr(),
         part_ml[0].data_ptr(), part_ml[1].data_ptr(), part_acc.data_ptr(),
         out.data_ptr(), B, H, R, Dr, S, 1.0 / math.sqrt(head_dim_for_scale),
         ranges, dt, _stream(q_nope_abs.device))
@@ -1261,10 +1281,14 @@ def fused_paged_mla_decode_attention(q_nope_abs: torch.Tensor,
     ranges, part_ml, part_acc = _mla_partials(B, H, R, pps * ps,
                                               q_nope_abs.device)
     out = _out(out, (B, H, R), q_nope_abs, torch.float32)
+    # copies held to the launch (a dropped one's memory can go to the next)
+    q_nope_abs_c, q_rope_c, latent_pool_c, rope_pool_c = (
+        q_nope_abs.contiguous(), q_rope.contiguous(),
+        latent_pool.contiguous(), rope_pool.contiguous())
     err = _build.library().lib.repro_mla_paged_decode_attn(
-        q_nope_abs.contiguous().data_ptr(), q_rope.contiguous().data_ptr(),
-        latent_pool.contiguous().data_ptr(),
-        rope_pool.contiguous().data_ptr(), pt.data_ptr(), cur.data_ptr(),
+        q_nope_abs_c.data_ptr(), q_rope_c.data_ptr(),
+        latent_pool_c.data_ptr(),
+        rope_pool_c.data_ptr(), pt.data_ptr(), cur.data_ptr(),
         part_ml[0].data_ptr(), part_ml[1].data_ptr(), part_acc.data_ptr(),
         out.data_ptr(), B, H, R, Dr, num_pages, ps, pps,
         1.0 / math.sqrt(head_dim_for_scale), ranges, dt,

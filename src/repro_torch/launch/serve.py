@@ -22,21 +22,41 @@ What it does, as the reference:
 * **Straggler-aware decode** — a χ-schedule feeds the iteration-time
   model; the :class:`SemiController` plans through the
   :class:`ControlPlane`; ``--control zero`` ZERO-resizes the decode
-  matmuls of the (simulated) contended rank. Plans sized on a simulated
-  group (``--sim-ranks``) are projected onto the real group.
+  matmuls of the (simulated) contended rank, ``--control semi`` (and
+  ``mig``) also migrates up to ``max_sources`` stragglers' FFN blocks to
+  the helper ranks, losslessly under ``beta_policy="lossless"``. Plans
+  sized on a simulated group (``--sim-ranks``) are projected onto the
+  real group; each step's history records what EXECUTED (``mig_srcs`` /
+  ``mig_shed``) beside the controller's intent (``planned_mig_srcs`` /
+  ``planned_mig_shed``).
+* **Tensor parallelism** — ``tp`` ranks of one group run in one process
+  (:class:`repro_torch.parallel.TPGroup`, as in the trainer): under a
+  plan, the controlled layers compute each rank's shard and sum the
+  partials in rank order (``psum_chunks`` splits that sum). A MoE layer
+  follows its ``expert_sharding``: ``"tp"`` keeps 1/tp of every expert's
+  hidden width per rank and sums once per token; ``"expert"``
+  (DeepSeek-V2) keeps each expert whole, the single-group function.
+  Without a plan (``--control off``) the step is the dense
+  product on the global weights, the same function.
+* **Warm load** — ``ckpt_dir`` loads the newest committed checkpoint's
+  parameters (either package's; a full train state or params only),
+  cast to ``param_dtype``.
 
 The engine's clock and per-token latencies are MODELED from the
 iteration-time model (``peak_flops`` is a host-CPU calibration), exactly
 as in the reference; the host wall time of each step is reported beside
 them as ``wall_s``.
 
-The engine runs ``tp == 1`` — dense GQA models (Yi-6B) and DeepSeek-V2
-(MLA + MoE), over the slot cache or the paged pool. A ragged shard
-geometry, checkpoint loading, ``tp > 1`` and the migration modes raise
-``NotImplementedError`` naming the slice that brings them.
+The engine serves dense GQA models (Yi-6B) and DeepSeek-V2 (MLA + MoE),
+over the slot cache or the paged pool. A ragged shard geometry raises
+``NotImplementedError`` naming the slice that brings it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
         --control zero --hetero contention --chi 4 --sim-ranks 8 \\
+        --fused-attn --use-kernel
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
+        --tp 4 --control semi --hetero contention --chi 4 --sim-ranks 8 \\
+        --max-sources 3 --beta-policy lossless --psum-chunks 2 \\
         --fused-attn --use-kernel
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-v2-lite-16b --page-size 8 --num-pages 12 \\
@@ -53,6 +73,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import bridge
+from repro_torch.checkpoint import store as ckpt_store
 from repro_torch.config import ModelConfig, ShapeConfig, get_config, smoke_variant
 from repro_torch.control import ControlConfig, ControlPlane
 from repro_torch.control import scopes as scopes_lib
@@ -60,11 +82,8 @@ from repro_torch.core import hetero as hetero_lib
 from repro_torch.core import paging as paging_lib
 from repro_torch.layers.tp_linear import GEOMETRY_SLICE, ControlContext
 from repro_torch.models import lm as lm_lib
+from repro_torch.parallel import TPGroup
 
-CHECKPOINT_SLICE = ("the checkpoint slice (ROADMAP.md, queue A: "
-                    "checkpoint/store.py, then the serve engine's ckpt_dir)")
-SERVE_TP_SLICE = ("a later slice (ROADMAP.md, queue A: the serve engine at "
-                  "tp > 1 with mig|semi)")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -239,16 +258,6 @@ class ServeEngine:
         if c.geometry is not None:
             raise NotImplementedError(
                 f"a ragged shard geometry comes with {GEOMETRY_SLICE}")
-        if ckpt_dir:
-            raise NotImplementedError(
-                f"loading a checkpoint comes with {CHECKPOINT_SLICE}")
-        if tp != 1:
-            raise NotImplementedError(
-                f"serving at tp={tp} comes with {SERVE_TP_SLICE}")
-        if c.mode in ("mig", "semi"):
-            raise NotImplementedError(
-                f"control mode {c.mode!r} (migration) comes with "
-                f"{SERVE_TP_SLICE}")
         self.cfg = (model_cfg if model_cfg is not None
                     else smoke_variant(get_config(arch)))
         if self.cfg.encdec is not None:
@@ -291,6 +300,7 @@ class ServeEngine:
                           if wc.fused_attention else self.cfg)
         self._cache_ax = lm_lib.cache_axes(self.cfg, paging=self.paging)
         step_cfg, cache_ax, dev = self._step_cfg, self._cache_ax, self.device
+        group = TPGroup(tp)
         invalid_pos = int(paging_lib.INVALID_POS)
 
         def _build(static):
@@ -309,7 +319,9 @@ class ServeEngine:
                 pages_d = None if pages is None else _upload(pages, dev)
                 ctx = (ControlContext(
                     static=static, bucket_by_rank=plan["bucket_by_rank"],
-                    pri=plan["pri"], use_kernel=wc.use_kernel)
+                    pri=plan["pri"], use_kernel=wc.use_kernel,
+                    mig_src=plan.get("mig_src", ()),
+                    psum_chunks=wc.psum_chunks, group=group)
                     if static is not None else None)
                 p_eff = np.where(valid > 0.0, pos, invalid_pos).astype(
                     np.int32)
@@ -349,6 +361,11 @@ class ServeEngine:
         self.plane = ControlPlane(
             self.cfg, wc, tp=tp, builder=_build, device=self.device,
             it_model=self.it_model, sim_ranks=self.sim_ranks,
+            # the controller reasons in per-rank shard blocks (the paper's
+            # L_i) so migration sheds are sized to FIT a source's local
+            # shard; projected sheds are additionally clamped to the real
+            # group's shard when sim_ranks != tp
+            controller_blocks="local", clamp_sheds=True,
             hetero_kind=c.hetero_kind, chi=c.chi, period=c.period,
             contention_p=c.contention_p, seed=c.seed,
             trace_in=c.trace_in, trace_rank_offset=c.trace_rank_offset,
@@ -366,6 +383,13 @@ class ServeEngine:
         gen.manual_seed(seed)
         # a plain assignable attribute: callers may install other weights
         self.params = lm_lib.init(gen, self.cfg, dtype, self.device)
+        if ckpt_dir:
+            # race-tolerant latest-committed load: a warm spare may be
+            # promoted while a trainer is mid-save in the same directory
+            _, loaded = ckpt_store.load_latest_params(
+                ckpt_dir, bridge.params_template(self.params))
+            if loaded is not None:
+                bridge.load_params(self.params, loaded)
         self.cache = lm_lib.init_cache(self.cfg, num_slots, max_len, dtype,
                                        self.device, paging=self.paging)
 
@@ -534,11 +558,15 @@ class ServeEngine:
         dense_latency = self.it_model.step_time(chis, np.ones(self.sim_ranks))
         plan_report = None
         plan = None
+        proj = None
         frac = np.ones(self.sim_ranks)
         if self.controller is not None:
             times = self.plane.controller_times(chis)
             plan, plan_report = self.plane.decide(times)
-            step_fn, plan_arrays, _ = self.plane.dispatch(plan)
+            # full SEMI dispatch: the projected plan carries resize
+            # buckets AND multi-source migration slots; the step is keyed
+            # on the projected signature in the build cache
+            step_fn, plan_arrays, proj = self.plane.dispatch(plan)
             frac = self.plane.work_frac(plan)
             latency = self.it_model.step_time(chis, frac * chunk_scale)
         else:
@@ -624,6 +652,17 @@ class ServeEngine:
         if plan_report is not None:
             report["stragglers"] = list(plan_report.stragglers)
             report["max_bucket"] = int(plan_report.bucket_by_rank.max())
+            # mig_srcs/mig_shed record what EXECUTED on the real group
+            # (post-projection); the controller's sim-scale intent lands
+            # under planned_* — at tp=1 the two legitimately differ
+            if proj is not None and proj.mig_srcs:
+                report["mig_srcs"] = [int(s) for s in proj.mig_srcs]
+                report["mig_shed"] = [int(m) for m in proj.mig_sheds]
+            if plan_report.mig_srcs:
+                report["planned_mig_srcs"] = [int(s)
+                                              for s in plan_report.mig_srcs]
+                report["planned_mig_shed"] = [int(m)
+                                              for m in plan_report.mig_shed]
         self.history.append(report)
         return report
 
@@ -732,6 +771,12 @@ class ServeEngine:
         self.plane.close()
 
     # -- introspection -------------------------------------------------------
+    def trace_counts(self) -> Dict[str, int]:
+        """Step-build telemetry: plan signatures built vs reused. (The
+        reference adds its jitted step's trace-cache size; an eager step
+        is never traced, so there is no such count here.)"""
+        return dict(self.plane.counts())
+
     def _analysis_args(self, plan=None):
         """One engine step's arguments for the analyzer: every slot feeding
         one token at its own position (a recycled slot cleared), the
@@ -764,14 +809,17 @@ class ServeEngine:
             args=self._analysis_args(), state_argnums=(1,),
             signature=f"serve_base_tp{self.tp}")]
 
-    def analysis_decode_cases(self, spellings):
+    def analysis_decode_cases(self, spellings, *, bucket: int = 1,
+                              mig_src=(), name: str = "", expect=None):
         """Analyzer cases for the controlled serve step of one plan
         signature, built by the plane's builder directly (not through its
         build cache, which would hand back one object for every spelling)
         from each ``(label, PlanStatic)`` of ``spellings``: the first is the
-        case, the rest are its retraces (R1). Every rank at bucket 1."""
+        case, the rest are its retraces (R1). Every rank at ``bucket``;
+        ``mig_src`` the source rank of each migration slot."""
         from repro_torch.analysis.registry import TraceCase
-        plan = {"bucket_by_rank": np.ones((self.tp,), np.int32),
+        plan = {"bucket_by_rank": np.full((self.tp,), bucket, np.int32),
+                "mig_src": np.asarray(mig_src, np.int32),
                 "pri": self.plane.identity_pri}
 
         def step_fn(static):
@@ -784,8 +832,10 @@ class ServeEngine:
         args = self._analysis_args(plan)
         (_, first), rest = spellings[0], spellings[1:]
         return [TraceCase(
-            step="serve_decode_step", name=f"controlled_tp{self.tp}",
+            step="serve_decode_step",
+            name=name or f"controlled_tp{self.tp}",
             fn=step_fn(first), args=args, state_argnums=(1,),
+            expect=dict(expect or {}),
             signature=first.canonical().signature_str(),
             retrace=tuple((f"{label}-spelling", step_fn(st), args)
                           for label, st in rest))]
@@ -841,10 +891,22 @@ def main(argv=None):
                              "trace"])
     ap.add_argument("--chi", type=float, default=4.0)
     ap.add_argument("--sim-ranks", type=int, default=0)
+    ap.add_argument("--max-sources", type=int, default=3,
+                    help="concurrent migration slots (semi mode)")
+    ap.add_argument("--beta-policy", default="lossless",
+                    choices=["lossless", "eq2"],
+                    help="semi mission split: lossless migrates the full "
+                         "offset volume (token-exact); eq2 balances "
+                         "migration vs resize cost per Eq.(2)")
     ap.add_argument("--use-kernel", action="store_true",
                     help="pruned products through the CUDA kernels")
     ap.add_argument("--fused-attn", action="store_true",
                     help="decode attention through the fused CUDA kernel")
+    ap.add_argument("--psum-chunks", type=int, default=1,
+                    help="split the controlled epilogue all-reduce into "
+                         "this many sums")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the newest committed checkpoint's params")
     ap.add_argument("--times", default="modeled",
                     choices=["modeled", "measured"],
                     help="controller input: χ-oracle or the online "
@@ -871,11 +933,13 @@ def main(argv=None):
 
     control = ControlConfig(
         mode=args.control, hetero_kind=args.hetero, chi=args.chi,
-        sim_ranks=args.sim_ranks, use_kernel=args.use_kernel,
-        fused_attention=args.fused_attn, times=args.times, trace_in=args.trace_in, trace_out=args.trace_out)
+        sim_ranks=args.sim_ranks, max_sources=args.max_sources,
+        beta_policy=args.beta_policy, use_kernel=args.use_kernel,
+        fused_attention=args.fused_attn, psum_chunks=args.psum_chunks,
+        times=args.times, trace_in=args.trace_in, trace_out=args.trace_out)
     eng = ServeEngine(args.arch, num_slots=args.slots,
                       max_len=args.prompt_len + args.gen_len, tp=args.tp,
-                      control=control, page_size=args.page_size,
+                      ckpt_dir=args.ckpt_dir, control=control, page_size=args.page_size,
                       prefill_chunk=args.prefill_chunk,
                       kv_int8=args.kv_int8, num_pages=args.num_pages,
                       device=args.device)
@@ -900,8 +964,9 @@ def main(argv=None):
           f"{stats['p50_ms']:.2f}/{stats['p95_ms']:.2f}/"
           f"{stats['p99_ms']:.2f} ms, {stats['tok_per_s']:.1f} tok/s "
           "(modeled clock)")
-    print(f"plan builds: {eng.plane.counts()}; preemptions "
-          f"{eng.preemptions}")
+    migrated = sum(1 for h in eng.history if h.get("mig_srcs"))
+    print(f"trace counts: {eng.trace_counts()}; migrating steps "
+          f"{migrated}; preemptions {eng.preemptions}")
 
 
 # ---------------------------------------------------------------------------
@@ -925,17 +990,32 @@ def _an_serve_engine_cases(env):
 
 
 def _an_decode_cases(env):
-    eng = _an_engine(env, ControlConfig(
-        mode="zero", hetero_kind="contention", chi=4.0, sim_ranks=8,
-        use_kernel=True, fused_attention=True))
-    try:
-        # two spellings of one canonical plan signature (R1)
-        st = eng.plane.static
-        return eng.analysis_decode_cases([
-            ("mig_shed", dataclasses.replace(st, mig_shed=(2,))),
-            ("mig_blocks", dataclasses.replace(st, mig_blocks=2))])
-    finally:
-        eng.close()
+    cases = []
+    # ZERO at tp 1, and SEMI at tp 4 with rank 0 the source of a 2-block
+    # shed (block 16: 8 blocks a rank of Yi-6B smoke's 512-wide FFN), the
+    # path of the migrating serve step: one grouped broadcast per FFN
+    # layer, each psum in rank order
+    for tp, name, control, plan in (
+            (1, "", ControlConfig(
+                mode="zero", hetero_kind="contention", chi=4.0, sim_ranks=8,
+                use_kernel=True, fused_attention=True), {}),
+            (4, "controlled_tp4_semi", ControlConfig(
+                mode="semi", hetero_kind="contention", chi=4.0, sim_ranks=8,
+                block_size=16, use_kernel=True, fused_attention=True),
+             dict(bucket=0, mig_src=(0,),
+                  expect={"grouped_bcast": {"count": 2}}))):
+        eng = ServeEngine("yi-6b", num_slots=2, max_len=16, tp=tp,
+                          control=control, device=env.device)
+        try:
+            # two spellings of one canonical plan signature (R1)
+            st = eng.plane.static
+            cases += eng.analysis_decode_cases([
+                ("mig_shed", dataclasses.replace(st, mig_shed=(2,))),
+                ("mig_blocks", dataclasses.replace(st, mig_blocks=2))],
+                name=name, **plan)
+        finally:
+            eng.close()
+    return cases
 
 
 _analysis.register("serve_engine_step", _an_serve_engine_cases)

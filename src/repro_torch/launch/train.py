@@ -13,14 +13,20 @@ reported beside it (``wall_s``).
 Plan assembly, the signature-keyed build cache, mitigation dispatch and
 telemetry live in :class:`repro_torch.control.ControlPlane`, with the
 trainer's conventions (``controller_blocks="global"``, unclamped sheds,
-``beta_policy="eq2"``). Not in this slice: checkpoint/resume
-(``ckpt_dir`` / ``resume``), the ragged ``geometry``, ``dp > 1`` and
+``beta_policy="eq2"``).
+
+Checkpoints carry the COMPLETE train state in the reference's layout —
+params and AdamW moments + step (through :mod:`repro_torch.bridge`, in
+the JAX tree's keys), controller/estimator state and the data-pipeline
+position — so a run resumed with ``--resume`` is bit-identical to an
+uninterrupted one, and a checkpoint of either package resumes in the
+other. Not in this slice: the ragged ``geometry``, ``dp > 1`` and
 language-model training raise ``NotImplementedError`` naming the slice
 that brings them.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --steps 12 --tp 4 --control semi --hetero round_robin --chi 4 \\
-        --mig-blocks 2
+        --mig-blocks 2 --ckpt-dir /tmp/ck --ckpt-every 4
 """
 from __future__ import annotations
 
@@ -33,15 +39,16 @@ import numpy as np
 import torch
 
 from repro_torch import bridge
+from repro_torch.checkpoint import store as ckpt_store
 from repro_torch.config import (ModelConfig, ShapeConfig, TrainConfig,
                                 get_config, smoke_variant)
 from repro_torch.control import ControlConfig, ControlPlane
 from repro_torch.core import hetero as hetero_lib
 from repro_torch.core.workload import WorkloadPlan
 from repro_torch.data.pipeline import (PatternImageStream, eval_accuracy,
-                                       patchify)
+                                       patchify, skip_batches)
 from repro_torch.launch import steps as steps_lib
-from repro_torch.launch.serve import CHECKPOINT_SLICE, resolve_device
+from repro_torch.launch.serve import resolve_device
 from repro_torch.layers.tp_linear import GEOMETRY_SLICE
 from repro_torch.models import vit as vit_lib
 from repro_torch.optim import adamw
@@ -110,9 +117,6 @@ def run_training(arch: str, *, steps: int = 50, tp: int = 1, dp: int = 1,
                  ViT), carried over by :mod:`repro_torch.bridge`; else the
                  weights are drawn from ``seed`` on ``device``.
     """
-    if ckpt_dir or resume:
-        raise NotImplementedError(
-            f"checkpoint / resume comes with {CHECKPOINT_SLICE}")
     if geometry is not None and str(geometry).strip().lower() \
             not in ("", "none"):
         raise NotImplementedError(
@@ -172,10 +176,64 @@ def run_training(arch: str, *, steps: int = 50, tp: int = 1, dp: int = 1,
         model = vit_lib.init(gen, cfg, torch.float32, dev)
     opt = adamw.init(dict(model.named_parameters()))
 
+    # -- resume: restore the FULL train state (params + optimizer
+    # moments/step + control-plane state + data position), so the resumed
+    # run is equivalent to never having stopped. Legacy params-only
+    # checkpoints restore what they have.
+    start_step = 0
+    batches_drawn = 0
+    if ckpt_dir and resume:
+        last = ckpt_store.latest_step(ckpt_dir)
+        if last is not None:
+            extra = ckpt_store.read_manifest(ckpt_dir, last).get("extra", {})
+            # the checkpointed param layout is geometry-dependent; this
+            # slice runs the equal split only (legacy checkpoints carry no
+            # key == equal split)
+            if extra.get("geometry"):
+                raise ValueError(
+                    f"checkpoint shard geometry {extra['geometry']} does "
+                    "not match this run's geometry None; resuming across "
+                    "geometries is not supported")
+            full = extra.get("layout") == ckpt_store.TRAIN_STATE_LAYOUT
+            bridge.load_vit_params(model, ckpt_store.restore(
+                ckpt_dir, last, bridge.vit_params_to_numpy(model),
+                prefix="params" if full else None))
+            if full:
+                opt = bridge.adamw_state_from_jax(ckpt_store.restore(
+                    ckpt_dir, last, bridge.adamw_state_to_numpy(opt, cfg),
+                    prefix="opt"), cfg, dev)
+                plane.load_state(
+                    ckpt_store.load_arrays(ckpt_dir, last, "plane"),
+                    extra.get("plane"))
+                start_step = int(extra.get("train_step", last))
+                batches_drawn = int(extra.get("data_batches", start_step))
+            else:
+                start_step = batches_drawn = last
+
+    def save_ckpt(step_now: int) -> None:
+        tree = {"params": bridge.vit_params_to_numpy(model),
+                "opt": bridge.adamw_state_to_numpy(opt, cfg)}
+        plane_arrays = plane.state_arrays()
+        if plane_arrays:
+            tree["plane"] = plane_arrays
+        ckpt_store.save(ckpt_dir, step_now, tree, extra={
+            "layout": ckpt_store.TRAIN_STATE_LAYOUT,
+            "train_step": step_now,
+            "data_batches": batches_drawn,
+            "plane": plane.state_meta(),
+            "geometry": None,
+            "arch": arch, "tp": tp, "dp": dp, "seed": seed})
+
     stream = iter(PatternImageStream(batch_size=batch, seed=seed,
                                      noise=data_noise))
     eval_stream = iter(PatternImageStream(batch_size=batch, seed=seed + 777,
                                           noise=data_noise))
+    if batches_drawn:
+        # re-align the synthetic streams with the checkpointed position
+        skip_batches(stream, batches_drawn)
+        if eval_every:
+            skip_batches(eval_stream,
+                         EVAL_BATCHES * (start_step // eval_every))
 
     def to_device(images, labels):
         return {"patches": torch.from_numpy(patchify(images)).to(dev),
@@ -186,7 +244,7 @@ def run_training(arch: str, *, steps: int = 50, tp: int = 1, dp: int = 1,
                "gammas": [], "mig": [], "mig_shed": [],
                "buckets": [], "signatures": [], "wall_s": []}
 
-    for it in range(steps):
+    for it in range(start_step, steps):
         chis = plane.chis(it)
         plan_arrays = None
         report = None
@@ -210,6 +268,7 @@ def run_training(arch: str, *, steps: int = 50, tp: int = 1, dp: int = 1,
             work_frac = plane.work_frac(plan)
 
         raw = next(stream)
+        batches_drawn += 1
         b = to_device(raw["images"], raw["labels"])
         plane.timer.start()
         opt, metrics = step_fn(model, opt, b, plan_arrays)
@@ -253,6 +312,12 @@ def run_training(arch: str, *, steps: int = 50, tp: int = 1, dp: int = 1,
             print(f"step {it+1:4d} loss={loss:.4f} "
                   f"wall={wall*1e3:.0f}ms modeled={modeled*1e3:.1f}ms")
 
+        if ckpt_dir and (it + 1) % max(ckpt_every, 1) == 0 \
+                and (it + 1) < steps:
+            save_ckpt(it + 1)
+
+    if ckpt_dir:
+        save_ckpt(steps)
     plane.close()
     history["final_loss"] = history["loss"][-1] if history["loss"] else None
     history["mean_modeled_step_s"] = float(
@@ -299,6 +364,10 @@ def main():
                     choices=["zero", "average", "same"])
     ap.add_argument("--selection", default="priority",
                     choices=["random", "priority"])
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50,
+                    help="steps between mid-run full-state checkpoints")
+    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--eval-every", type=int, default=0)
     ap.add_argument("--use-kernel", action="store_true",
                     help="route the controlled products through the CUDA "
@@ -312,12 +381,14 @@ def main():
         args.arch, steps=args.steps, tp=args.tp,
         control_mode=args.control, hetero_kind=args.hetero, chi=args.chi,
         lr=args.lr, batch=args.batch, seq=args.seq, seed=args.seed,
+        ckpt_dir=args.ckpt_dir, resume=args.resume,
         imputation=args.imputation, selection=args.selection,
         mig_blocks=args.mig_blocks, max_sources=args.max_sources,
         eval_every=args.eval_every, use_kernel=args.use_kernel,
         psum_chunks=args.psum_chunks, times=args.times,
         trace_in=args.trace_in, trace_out=args.trace_out,
-        measure_noise=args.measure_noise, device=args.device)
+        measure_noise=args.measure_noise, ckpt_every=args.ckpt_every,
+        device=args.device)
     print(f"final loss: {hist['final_loss']:.4f}  "
           f"mean modeled step: {hist['mean_modeled_step_s']*1e3:.2f} ms")
     if args.out:

@@ -400,13 +400,16 @@ class MoE(nn.Module):
 def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig,
               ctx: Optional[ControlContext]):
     """Routed experts plus the shared experts (through the controlled
-    FFN, so ZERO-resizing and the pruned-FFN kernel reach them). Returns
-    (y, aux loss)."""
+    FFN, so ZERO-resizing and the pruned-FFN kernel reach them). Under a
+    plan for more than one rank, experts sharded ``"tp"`` run TP-local
+    over the plan's group (``moe_lib.moe_ffn``'s ``group``). Returns (y,
+    aux loss)."""
     act, _ = act_of(cfg.act)
     params = {"router": p.router, "w_up": p.w_up, "w_down": p.w_down}
     if p.w_gate is not None:
         params["w_gate"] = p.w_gate
-    y, aux = moe_lib.moe_ffn(x, params, cfg.moe, act)
+    y, aux = moe_lib.moe_ffn(x, params, cfg.moe, act,
+                             group=ctx.group if ctx is not None else None)
     if p.shared is not None:
         y = y + controlled_ffn(x, p.shared.w_up, p.shared.w_down, ctx, "ffn",
                                act, w_gate=p.shared.w_gate)

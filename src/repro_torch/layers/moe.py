@@ -1,5 +1,4 @@
-"""Mixture-of-experts FFN, the single-group path (port of
-``repro.layers.moe``).
+"""Mixture-of-experts FFN (port of ``repro.layers.moe``).
 
 Dispatch is sort-based and grouped (static shapes): tokens are sorted by
 assigned expert, placed into a fixed [E, G, d] buffer (G = capacity), the
@@ -12,17 +11,26 @@ so a lower token index (then a lower choice rank) wins.
 The [E, G, d] expert products are plain batched products, which the
 reference leaves to XLA outside any Pallas kernel; here they are
 ``torch.bmm``. Routed experts are excluded from ZERO-resizing; the caller
-composes the shared experts through the controlled FFN. The reference's
-tensor-parallel expert path (``_moe_tp_local``) waits for serving at
-tp > 1; at one rank it computes what :func:`moe_ffn` computes.
+composes the shared experts through the controlled FFN.
+
+The path follows ``MoEConfig.expert_sharding`` as the reference's does.
+Under ``"tp"`` (Mixtral's few big experts) over a group of more than one
+rank, the experts run TP-local (``_moe_tp_local``): each rank holds 1/tp
+of every expert's hidden width and combines its second products per
+token BEFORE one sum over the group (``TPGroup.psum``, in rank order), so
+the collective is [T, d], not [E, G, d]. Under ``"expert"`` (DeepSeek-V2's
+64 experts) each expert keeps its full hidden width on one rank; the
+reference leaves that split to GSPMD, and its function is the
+single-group one, which the port computes at every tp.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.config import MoEConfig
+from repro_torch.parallel import TPGroup
 
 
 def router_topk(x: torch.Tensor, w_router: torch.Tensor, cfg: MoEConfig
@@ -87,13 +95,37 @@ def grouped_dispatch(idx: torch.Tensor, weights: torch.Tensor, T: int,
             torch.sort(token_slots.reshape(T, k), dim=1).values)
 
 
+def _expert_products(xe: torch.Tensor, w_up: torch.Tensor,
+                     w_down: torch.Tensor, w_gate: Optional[torch.Tensor],
+                     act_fn: Callable) -> torch.Tensor:
+    """[E, G, d] grouped tokens through every expert's pair."""
+    h = torch.bmm(xe, w_up)
+    h = act_fn(torch.bmm(xe, w_gate)) * h if w_gate is not None \
+        else act_fn(h)
+    return torch.bmm(h, w_down)                            # [E, G, d]
+
+
+def _combine(ye: torch.Tensor, comb_w: torch.Tensor,
+             token_slots: torch.Tensor) -> torch.Tensor:
+    """[E, G, d] expert rows -> [T, d]: each token sums its k expert rows
+    in ascending slot order (the reference's scatter-add order) by a
+    gather and a reduction over k — deterministic on the card, where a
+    scatter-add is not."""
+    d = ye.shape[-1]
+    ye = ye * comb_w[..., None].to(ye.dtype)
+    ye = torch.cat([ye.reshape(-1, d), ye.new_zeros((1, d))], dim=0)
+    return ye[token_slots].sum(dim=1)
+
+
 def moe_ffn(x: torch.Tensor, params: Dict[str, torch.Tensor],
-            cfg: MoEConfig, act_fn: Callable
+            cfg: MoEConfig, act_fn: Callable,
+            group: Optional[TPGroup] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> (y [B, S, d], aux loss). Routed experts only; the
     shared experts and dense layers are composed by the caller.
     ``params``: router [d, E] f32, w_up / w_gate [E, d, f], w_down
-    [E, f, d]."""
+    [E, f, d]. Under ``expert_sharding="tp"`` a ``group`` of more than
+    one rank runs the experts TP-local (:func:`_moe_tp_local`)."""
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
@@ -103,14 +135,32 @@ def moe_ffn(x: torch.Tensor, params: Dict[str, torch.Tensor],
         idx, weights, T, cfg.num_experts, capacity)
     xpad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
     xe = xpad[gather_t]                                    # [E, G, d]
-    wg = params.get("w_gate")
-    h = torch.bmm(xe, params["w_up"])
-    h = act_fn(torch.bmm(xe, wg)) * h if wg is not None else act_fn(h)
-    ye = torch.bmm(h, params["w_down"])                    # [E, G, d]
-    ye = ye * comb_w[..., None].to(ye.dtype)
-    # combine: each token sums its k expert rows in ascending slot order
-    # (the reference's scatter-add order) by a gather and a reduction
-    # over k — deterministic on the card, where a scatter-add is not
-    ye = torch.cat([ye.reshape(-1, d), ye.new_zeros((1, d))], dim=0)
-    y = ye[token_slots].sum(dim=1)
+    if cfg.expert_sharding == "tp" and group is not None and group.e > 1:
+        y = _moe_tp_local(xe, params, comb_w, token_slots, act_fn, group)
+    else:
+        y = _combine(_expert_products(xe, params["w_up"], params["w_down"],
+                                      params.get("w_gate"), act_fn),
+                     comb_w, token_slots)
     return y.reshape(B, S, d), aux
+
+
+def _moe_tp_local(xe: torch.Tensor, params: Dict[str, torch.Tensor],
+                  comb_w: torch.Tensor, token_slots: torch.Tensor,
+                  act_fn: Callable, group: TPGroup) -> torch.Tensor:
+    """TP-sharded experts (reference ``layers/moe.py:_moe_tp_local``):
+    rank r multiplies the grouped tokens by its 1/e of every expert's
+    hidden width (columns of w_up / w_gate, rows of w_down), combines
+    its partial [E, G, d] rows per token, and the ranks' [T, d] partials
+    meet in one ``psum`` (reduce-merging, the same trick as the paper's
+    migration). Routing and dispatch are the group's (one data shard)."""
+    f = params["w_up"].shape[-1]
+    n = group._width(f, "expert hidden width")
+    wg = params.get("w_gate")
+    parts = []
+    for r in range(group.e):
+        cols = slice(r * n, (r + 1) * n)
+        ye = _expert_products(
+            xe, params["w_up"][..., cols], params["w_down"][:, cols],
+            None if wg is None else wg[..., cols], act_fn)
+        parts.append(_combine(ye, comb_w, token_slots))
+    return group.psum(parts)

@@ -219,7 +219,13 @@ def controlled_ffn(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
             # local branch never keeps fewer than 1 block, so the
             # migrated window must start after it to stay disjoint
             start = min(max(max(kc_self - m_s, 1), 0), nb - m_s)
-            mig_ids = ctx.pri_list(scope, r)[start:start + m_s]
+            # and within the list, as the reference's dynamic slice
+            # clamps it: a layer wider than its scope's list (DeepSeek-V2's
+            # dense first layer beside the shared experts) exports the
+            # list's last m_s ids
+            pri = ctx.pri_list(scope, r)
+            start = max(0, min(start, pri.shape[-1] - m_s))
+            mig_ids = pri[start:start + m_s]
             wu, wd, wg = shards(r)
             return (resizing.gather_cols(wu, mig_ids, blk),
                     resizing.gather_rows(wd, mig_ids, blk),

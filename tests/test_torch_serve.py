@@ -24,6 +24,7 @@ from repro.control import ControlConfig as JControlConfig
 from repro.launch.serve import Request as JRequest
 from repro.launch.serve import ServeEngine as JServeEngine
 from repro_torch.bridge import params_from_jax
+from repro_torch.config import get_config, smoke_variant
 from repro_torch.control import ControlConfig
 from repro_torch.kernels import ops as tops
 from repro_torch.launch import serve as tserve
@@ -112,9 +113,10 @@ def test_engine_api_on_cpu():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(tp=2), dict(ckpt_dir="ckpt"),
-    dict(control=ControlConfig(mode="semi")),
-    dict(control=ControlConfig(mode="mig")),
+    dict(model_cfg=smoke_variant(get_config("falcon-mamba-7b"))),
+    dict(model_cfg=smoke_variant(get_config("recurrentgemma-2b"))),
+    dict(model_cfg=smoke_variant(get_config("qwen2-vl-7b"))),
+    dict(tp=4, control=ControlConfig(mode="semi", geometry=(3, 1, 2, 2))),
     dict(control=ControlConfig(geometry=(2, 1))),
 ])
 def test_unsupported_options_raise(kwargs):
