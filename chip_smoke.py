@@ -31,7 +31,9 @@ Phases, each printing one line of its own; any failure exits non-zero:
               and positions of the analysis phase's micro_kernel probe,
               where its launches come from; for #5-#7 in bf16 one line of
               device ms per call by launch (partial and merge; scores,
-              softmax and wsum) beside the bound.
+              softmax and wsum) beside the bound; #3 (the pruned FFN) in
+              one line per case by stage, the hidden stage and the down
+              product, each beside its bound.
    analysis — the port's static invariant gate on the card:
               ``python -m repro_torch.analysis --check --mutate`` must
               return 0 (the train, serve-decode and serve-engine steps
@@ -59,7 +61,9 @@ Phases, each printing one line of its own; any failure exits non-zero:
               just before and read just after, and each must be > 0.
 5. profile  — eight decode-only steps of the same engine under
               torch.profiler: wall vs device-kernel time per step and
-              the device time by kernel family.
+              the device time by kernel family; #3's hidden stage, where
+              a resized step runs it, only through its decode kernel
+              (also in paged-profile and mla-profile).
    paged-serve — the same run over the paged pool (page 16, 96 pages):
               it must preempt, and #2, #3, #4 must launch.
    paged-profile — eight decode-only steps of the paged engine under
@@ -93,7 +97,8 @@ Phases, each printing one line of its own; any failure exits non-zero:
               #10, #11 and #12, on the tensor cores, also beside a 3xTF32
               bound at 495/3 TFLOP/s), plus the forward kernels at the
               train shapes (#2 at wq_r and wo_r on the tensor-core core,
-              with the library's device time; #3).
+              with the library's device time; #3 twice for the same bits,
+              and by stage as in phase 2).
 7. train-reference — one controlled step (rank 0 resized and a migration
               source) of a two-layer, full-width ViT-1B in f32 at tp 4:
               loss and every gradient, kernel path against plain path.
@@ -104,7 +109,7 @@ Phases, each printing one line of its own; any failure exits non-zero:
               finite; at least one resized and one migrating step.
 9. train-profile — three steps of the same model under the run's plan,
               under torch.profiler: wall vs device time, by family, and
-              the block-pruned kernels by name (#2 and #3's down product
+              the block-pruned kernels by name (#2 and both stages of #3
               on the tensor-core core, #8-#12; no CUDA-core product left).
    resume   — checkpoint / resume of full-width ViT-1B cut to 4 layers
               (f32, tp 4, SEMI, measured times): 8 steps uninterrupted
@@ -125,6 +130,7 @@ train phases print host wall-clock numbers only.
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -422,6 +428,31 @@ def main():
                2 * B * 160 * 96, False)
 
     # -- pruned FFN ---------------------------------------------------------
+    def short_name(name):
+        """A profiler record's kernel as function<template arguments>."""
+        name = re.sub(r"\(anonymous namespace\)::|^void ", "", name)
+        return name.split("(")[0][:70]
+
+    def ffn_stages(phase, case, fn, n_sets, hidden_bound, down_bound,
+                   tc_bounds=None):
+        """One line: #3's device ms per call by stage (the profiler's, by
+        __global__ function: the down product's are #2's decode kernel or
+        its policy on the tensor-core core, and its split sum; the rest is
+        the hidden stage), each beside its bound (and, for f32 on the
+        tensor cores, its 3xTF32 bound)."""
+        krows, n = profiled_kernels(fn, n_sets)
+        down = sum(ms for k, _, ms in krows
+                   if "bpm_decode" in k or "BpmPolicy" in k
+                   or "reduce_splits" in k) / n
+        hidden = sum(ms for k, _, ms in krows) / n - down
+        names = sorted({short_name(k) for k, _, _ in krows})
+        tc = (f"; 3xTF32 bounds {tc_bounds[0]:.4f} / {tc_bounds[1]:.4f}"
+              if tc_bounds else "")
+        say(phase, f"fused_pruned_ffn {case}: hidden stage {hidden:.4f} ms "
+            f"(bound {hidden_bound[0]:.4f}, {hidden_bound[1]}), down product "
+            f"{down:.4f} ms (bound {down_bound[0]:.4f}, {down_bound[1]})"
+            f"{tc}; functions {names}")
+
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.finfo(dtype).bits // 8
         n_sets = copies_for(3 * D_MODEL * D_FF * es)
@@ -457,6 +488,15 @@ def main():
                    f"x[8,4096] Wup/Wgate[4096,11008] Wdown[11008,4096] silu "
                    f"keep {kc}/{nb_ffn}", dtype, got, ref, timings, nbytes,
                    flops, dtype == torch.bfloat16 and bucket == bucket_lo)
+            ffn_stages(
+                "kernels", f"keep {kc}/{nb_ffn} {str(dtype)[6:]}",
+                lambda i: ops.fused_pruned_ffn(xs[i], wus[i], wds[i], keep,
+                                               wgs[i], ops.silu, blk),
+                n_sets,
+                bound_ms((B * D_MODEL + 2 * D_MODEL * C + B * C) * es
+                         + kc * 4, 4 * B * D_MODEL * C, str(dtype)[6:]),
+                bound_ms((B * C + C * D_MODEL + B * D_MODEL) * es + kc * 4,
+                         2 * B * C * D_MODEL, str(dtype)[6:]))
         del xs, wus, wgs, wds
         # block 8 at the smoke width, gated and ungated
         x = rnd((B, 256), dtype)
@@ -1232,7 +1272,9 @@ def main():
         if "gqa_decode" in name:
             return ("fused_paged_decode_attention" if "PagedRows" in name
                     else "fused_decode_attention")
-        for key, fam in (("bpm_", "block-pruned products (proj + FFN down)"),
+        for key, fam in (("FfnPolicy", "fused_pruned_ffn hidden stage"),
+                         ("FfnGatedPolicy", "fused_pruned_ffn hidden stage"),
+                         ("bpm_", "block-pruned products (proj + FFN down)"),
                          ("BpmPolicy",
                           "block-pruned products (proj + FFN down)"),
                          ("ffn_hidden", "fused_pruned_ffn hidden stage"),
@@ -1263,6 +1305,20 @@ def main():
             say(tag, f"  top: {ms / n_prof:.3f} ms/step, "
                 f"{calls / n_prof:.0f}/step  {name[:90]}")
 
+    def ffn_route_check(tag, rows_, want):
+        """#3's hidden stage ran through ``want`` (the decode kernel at
+        the decode steps' 8 rows) wherever it ran in the window (only a
+        resized step runs it), and never through another function."""
+        ran = sorted({short_name(n) for n, _, _ in rows_
+                      if "ffn_hidden" in n or "FfnPolicy" in n
+                      or "FfnGatedPolicy" in n})
+        if any(want not in n and "ffn_hidden_act_kernel" not in n
+               for n in ran):
+            raise SystemExit(f"{tag}: #3's hidden stage ran {ran}, not "
+                             f"only {want}")
+        say(tag, "#3's hidden stage in the window: "
+            + (", ".join(ran) if ran else "no resized step, not launched"))
+
     def gqa_policy_check(tag, rows_, policy):
         """The step ran the GQA kernel with this row policy, and no GQA
         kernel without one (the two-file design is gone)."""
@@ -1279,6 +1335,7 @@ def main():
         raise SystemExit("profile: the decode step launched no "
                          "bpm_decode_kernel (#2 at 8 slots)")
     gqa_policy_check("profile", rows, "SlotRows")
+    ffn_route_check("profile", rows, "ffn_hidden_decode_kernel")
     report("profile", "decode-only step, 8 active slots", pwall_ms,
            dev_step_ms, rows, family)
     yi_tokens = {c.uid: c.tokens.tolist() for c in comps}
@@ -1372,6 +1429,7 @@ def main():
     # 8 fresh requests on the paged engine, 8 decode-only steps, as phase 5
     gwall_ms, gdev_ms, grows = decode_profile(eng, VOCAB, 3000)
     gqa_policy_check("paged-profile", grows, "PagedRows")
+    ffn_route_check("paged-profile", grows, "ffn_hidden_decode_kernel")
     report("paged-profile", "yi-6b decode-only step (paged, page 16), 8 "
            "active slots", gwall_ms, gdev_ms, grows, family)
     del eng
@@ -1494,6 +1552,7 @@ def main():
         if "mla_partial" in name or "mla_merge" in name:
             return "fused_paged_mla_decode_attention (#6)"
         return family(name)
+    ffn_route_check("mla-profile", mrows, "ffn_hidden_decode_kernel")
     report("mla-profile", "deepseek-v2-lite decode-only step (paged), 8 "
            "active slots", mwall_ms, mdev_ms, mrows, mla_family)
     del eng
@@ -1707,11 +1766,26 @@ def main():
             "plain_ms": time_ms(lambda i: ops.fused_pruned_ffn_plain(
                 xs[i], wus[i], wds[i], keep, None, ops.gelu, B8), n_sets),
             "library_ms": None}
+        again = ops.fused_pruned_ffn(xs[0], wus[0], wds[0], keep, None,
+                                     ops.gelu, B8)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            failures.append(f"fused_pruned_ffn train shape {dtype}: two "
+                            "runs differ")
         record("fused_pruned_ffn", "train shape x[520,2048] w_up_r/w_down_r "
                "[2048,2048] gelu block 8 keep 30/256", dtype, got, ref,
                timings, (2 * M_T * D_V + 2 * D_V * C) * es,
                2 * 2 * M_T * D_V * C, False, "grad-kernels",
-               tensor_cores=True)      # its down product above 16 rows
+               tensor_cores=True)      # both stages above 16 rows
+        stage_bytes = (M_T * D_V + D_V * C + M_T * C) * es
+        ffn_stages(
+            "grad-kernels", f"train shape {str(dtype)[6:]}",
+            lambda i: ops.fused_pruned_ffn(xs[i], wus[i], wds[i], keep, None,
+                                           ops.gelu, B8), n_sets,
+            bound_ms(stage_bytes, 2 * M_T * D_V * C, str(dtype)[6:]),
+            bound_ms(stage_bytes, 2 * M_T * D_V * C, str(dtype)[6:]),
+            (bound_ms(stage_bytes, 2 * M_T * D_V * C, "3xtf32")[0],) * 2
+            if f32 else None)
         del xs, wus, wds
 
     # block 128 at a small shape: compact modes and an unsorted keep list
@@ -1907,7 +1981,9 @@ def main():
     def train_family(name):
         # #2 and #3's down product share the tensor-core core with #8-#12:
         # by policy first
-        for key, fam in (("BpmPolicy", "block-pruned forward #2 (+ FFN down)"),
+        for key, fam in (("FfnPolicy", "pruned-FFN hidden stage #3"),
+                         ("FfnGatedPolicy", "pruned-FFN hidden stage #3"),
+                         ("BpmPolicy", "block-pruned forward #2 (+ FFN down)"),
                          ("pruned_gemm", "backward family #8-#12"),
                          ("bpm_", "block-pruned forward #2 (+ FFN down)"),
                          ("ffn_hidden", "pruned-FFN hidden stage #3"),
@@ -1927,12 +2003,14 @@ def main():
         f[0] += calls
         f[1] += ms
     tnames = [name for name, _, _ in trows]
-    missing = [k for k in ("BpmPolicy", "OpDxPolicy")
+    missing = [k for k in ("BpmPolicy", "OpDxPolicy", "FfnPolicy")
                if not any(k in n for n in tnames)]
-    if missing or any("pruned_gemm_kernel" in n for n in tnames):
+    if missing or any("pruned_gemm_kernel" in n
+                      or "ffn_hidden_partial_kernel" in n for n in tnames):
         raise SystemExit(f"train-profile: tensor-core policies {missing} "
                          "never launched, or a CUDA-core product "
-                         "(pruned_gemm_kernel) did")
+                         "(pruned_gemm_kernel, ffn_hidden_partial_kernel) "
+                         "did")
     say("train-profile", f"full-width step, plan [7,0,0,0] + source 0: wall "
         f"{twall_ms:.1f} ms/step, device kernels {tdev_ms:.1f} ms/step, "
         f"device busy {tdev_ms / twall_ms:.1%} (idle "
@@ -1943,6 +2021,7 @@ def main():
     for name, calls, ms in trows:
         if train_family(name) in ("backward family #8-#12",
                                   "block-pruned forward #2 (+ FFN down)",
+                                  "pruned-FFN hidden stage #3",
                                   "split reductions"):
             say("train-profile", f"  kernel: {ms / n_prof:.2f} ms/step, "
                 f"{calls / n_prof:.0f}/step  {name[:110]}")

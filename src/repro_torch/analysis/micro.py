@@ -151,6 +151,13 @@ def _kernel_cases(env: reg.CaseEnv) -> List[reg.TraceCase]:
                  x, wu, wd, k, None, ops.silu),
              rnd(256, 512), rnd(512, 1024, scale=0.04),
              rnd(1024, 512, scale=0.03), ids(1, 6))
+        # 8 rows, gated (the serving slots): #3's decode kernel
+        case("fused_pruned_ffn_decode",
+             lambda x, wu, wd, k, wg: ops.fused_pruned_ffn(
+                 x, wu, wd, k, wg, ops.silu),
+             rnd(8, 512), rnd(512, 1024, scale=0.04),
+             rnd(1024, 512, scale=0.03), ids(1, 6),
+             rnd(512, 1024, scale=0.04))
         case("fused_decode_attention",
              lambda q_, k, v, p: ops.fused_decode_attention(
                  q_, k, v, cur_pos=p), q, kv, kv, cur)

@@ -49,8 +49,10 @@ SIGNATURES = {
                                     _P),
     "repro_block_pruned_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _P),
-    "repro_pruned_ffn_hidden": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _P),
+    "repro_pruned_ffn_hidden": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _P),
+    "repro_pruned_ffn_hidden_tc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _P),
     "repro_pruned_matmul_dx": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _P),
     "repro_pruned_matmul_dw": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -75,7 +77,10 @@ CONFIG_SIGNATURES = {
     "repro_block_pruned_matmul": 6,       # M, N, kb, block, splits, dtype
     "repro_block_pruned_matmul_tc": 8,    # M, K, N, kb, block, x_compact,
                                           # splits, dtype
-    "repro_pruned_ffn_hidden": 6,         # M, K, kb, block, splits, dtype
+    "repro_pruned_ffn_hidden": 7,         # M, K, kb, block, gated, splits,
+                                          # dtype
+    "repro_pruned_ffn_hidden_tc": 7,      # M, K, kb, block, gated, splits,
+                                          # dtype
     "repro_pruned_matmul_dx": 8,          # M, N, nb, kb, block, compact,
                                           # splits, dtype
     "repro_pruned_matmul_dw": 8,          # M, N, nb, kb, block, compact,

@@ -79,24 +79,6 @@ __device__ __forceinline__ long kept_row(const int* keep, int blk, int t) {
   return (long)__ldg(keep + t / blk) * blk + t % blk;
 }
 
-__device__ __forceinline__ unsigned word(const uint4& v, int u) {
-  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
-}
-
-// A 16-byte load of w, read once: no L1 line; in bf16 the L2 fetches the
-// 256-byte neighbourhood, which the neighbouring column tiles read next
-// (measured 3-10% faster in bf16, up to 14% slower in f32: PERF.md).
-template <typename T>
-__device__ __forceinline__ uint4 load_w(const T* p) {
-  uint4 r;
-  if constexpr (sizeof(T) == 2)
-    asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0,%1,%2,%3}, [%4];"
-        : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w) : "l"(p));
-  else
-    r = __ldg(reinterpret_cast<const uint4*>(p));
-  return r;
-}
-
 // What the loads of one chunk need: the operands, the lane's rows and
 // columns, whether w and x take whole 16-byte / 4-element loads.
 template <typename T>

@@ -155,6 +155,27 @@ __device__ __forceinline__ void ldsm_x4_t(unsigned* r, const void* row) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
 }
 
+// A 16-byte load of a weight that the decode kernels read once
+// (block_pruned_matmul.cu, fused_pruned_ffn.cu): no L1 line; in bf16 the
+// L2 fetches the 256-byte neighbourhood, which the neighbouring column
+// tile (#2) or the block's other column group (#3) reads next (measured
+// 3-10% faster in bf16, up to 14% slower in f32 for #2: PERF.md).
+template <typename T>
+__device__ __forceinline__ uint4 load_w(const T* p) {
+  uint4 r;
+  if constexpr (sizeof(T) == 2)
+    asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0,%1,%2,%3}, [%4];"
+        : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w) : "l"(p));
+  else
+    r = __ldg(reinterpret_cast<const uint4*>(p));
+  return r;
+}
+
+// 32-bit word u of a 16-byte register.
+__device__ __forceinline__ unsigned word(const uint4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
 // Two f32 values as the bf16 pair of an mma fragment (lo in the low half).
 __device__ __forceinline__ unsigned bf16x2_of(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -264,4 +285,35 @@ __global__ void reduce_splits_kernel(const float* __restrict__ partial,
   float s = 0.f;
   for (int j = 0; j < splits; ++j) s += partial[(long)j * n + i];
   y[i] = from_f<T>(s);
+}
+
+// #3's activations, in f32 (fused_pruned_ffn.cu, pruned_grad.cu): silu
+// and the tanh approximation of gelu.
+enum { ACT_SILU = 0, ACT_GELU_TANH = 1 };
+
+__device__ __forceinline__ float act_f(float v, int act) {
+  if (act == ACT_GELU_TANH) {
+    const float k0 = 0.7978845608028654f;  // sqrt(2 / pi)
+    return 0.5f * v * (1.f + tanhf(k0 * (v + 0.044715f * v * v * v)));
+  }
+  return v / (1.f + expf(-v));  // silu = v * sigmoid(v)
+}
+
+// The second pass of #3's hidden stage where its contraction was split:
+// h[i] = act(sum_j part_gate[j, i]) * sum_j part_up[j, i] (ungated:
+// act(sum_j part_up[j, i])), the sums in a fixed order, cast to h's type.
+template <typename T>
+__global__ void ffn_hidden_act_kernel(const float* __restrict__ part_up,
+                                      const float* __restrict__ part_gate,
+                                      T* __restrict__ h, long n, int splits,
+                                      int act) {
+  long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float u = 0.f, g = 0.f;
+  for (int j = 0; j < splits; ++j) {
+    u += part_up[(long)j * n + i];
+    if (part_gate != nullptr) g += part_gate[(long)j * n + i];
+  }
+  const float v = part_gate != nullptr ? act_f(g, act) * u : act_f(u, act);
+  h[i] = from_f<T>(v);
 }

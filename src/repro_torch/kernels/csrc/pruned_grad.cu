@@ -1,7 +1,8 @@
 // The block-pruned products on the tensor cores, for Hopper (sm_90a).
 //
 // Replaces five TPU kernels of src/repro/kernels/pruned_matmul.py, and
-// #2 above the decode kernel's rows (block_pruned_matmul.cu):
+// #2 and #3's hidden stage above the decode kernels' rows
+// (block_pruned_matmul.cu, fused_pruned_ffn.cu):
 //
 //   block_pruned_matmul_2d   (#2)  y = x[:, keep] @ w[keep, :], M rows
 //                                  above the decode kernel's; x_compact
@@ -16,6 +17,9 @@
 //   outpruned_matmul_dx_2d   (#11) dx = dyc @ w[:, keep]^T        (dense out)
 //   outpruned_matmul_dw_2d   (#12) dW[:, order[k]] = x^T @ dyc[:, k], k < kb;
 //                                  zeros at the pruned columns
+//   fused_ffn_2d             (#3)  h = act(x @ w_gate[:, keep]) * (x @ w_up[:, keep])
+//                                  (ungated: act(x @ w_up[:, keep])), compact:
+//                                  #10's product, the activation in its epilogue
 //
 // All six are one product C[i, j] = sum_t A(i, t) * B(t, j) that differ
 // only in their index maps: an index that runs over a pruned dimension
@@ -25,7 +29,7 @@
 // index is i or j (#8, #9, #10, #12) or the contraction t itself (#2, #11:
 // the kept blocks of w's rows or columns are what is summed over). One
 // templated core (below) holds the tiling; six small policy structs hold
-// the maps. `idx` is the keep ids (#2, #10, #11) or the inverse
+// the maps. `idx` is the keep ids (#2, #3, #10, #11) or the inverse
 // permutation `order` = keep ids, then pruned ids (#8, #9, #12): its
 // first kb entries pair compact slot k with block idx[k] in the caller's
 // order, sorted or not.
@@ -36,6 +40,14 @@
 //     element, about 520 flops per byte read once: bound by operations,
 //     except #8 with few kept blocks (`wq`: 32 of 256), where writing its
 //     mostly-zero output makes it bound by bytes;
+//   - #3's hidden stage is #10's product twice over when gated (x @ w_up
+//     and x @ w_gate at the kept columns), 520 flops per byte too: bound
+//     by operations. Its gated form reads the two weights' tiles into
+//     rings of their own beside the one tile of x, keeps two sets of
+//     accumulators, and applies the activation where the output is
+//     written (the one range's epilogue; with several ranges, the sum's
+//     pass, ffn_hidden_act_kernel), so x is read once and the
+//     pre-activations never reach device memory with one range;
 //   - #9 and #12 contract over only M = 520 rows, and their outputs are
 //     full weight gradients of which the kept blocks are a small part
 //     (#9 `wq`: 256 of 2048 rows; the FFN's dW_down and dW_up: 240 of 2048
@@ -69,16 +81,17 @@
 //     element-wise path inside the same kernel;
 //   - the contraction split across grid.z so that the kept tiles fill 132
 //     SMs (the wrapper picks the count from the shapes and the SM count:
-//     about two blocks per SM for #2, #8, #10 and #11, three for #9 and
+//     about two blocks per SM for #2, #3, #8, #10 and #11, three for #9 and
 //     #12, whose 17 stages give 9 ranges at `wq` and `wo` and 4 at the
 //     FFN). Each split writes f32 partials of the kept region only; a
 //     second launch sums them in a fixed order (no float atomics, so two
 //     runs are bit-identical) and writes the output: `reduce_splits_kernel`
 //     where it is contiguous (#2, #10, #11, #8 compact_out),
 //     `reduce_splits_scatter_kernel` through the policy's map otherwise
-//     (#8, #9, #12). Where #2 and #11 get one range (#11 at the FFN's 288
-//     tiles; #2 at `wo` and the FFN's down product) the epilogue writes
-//     the output itself and there is no second launch;
+//     (#8, #9, #12), `ffn_hidden_act_kernel` with the activation (#3).
+//     Where #2, #3 and #11 get one range (#11 at the FFN's 288 tiles; #2
+//     at `wo` and the FFN's down product) the epilogue writes the output
+//     itself and there is no second launch;
 //   - the zeros: extra blocks of the first launch write the pruned columns
 //     (#8, #12; along x) or rows (#9; along y), 64 x 64 a block in 16-byte
 //     stores, while the product runs.
@@ -107,6 +120,8 @@ struct Args {
   int lda, ldb, ldc;   // row strides of the operands as stored
   int flag;         // compact_out (#8) / x_compact (#2, #9)
   int a_vec, b_vec, c_vec;  // 16-byte copies / stores
+  const void* b2;   // #3: w_gate, a second B read like b (null: ungated)
+  int act;          // #3: ACT_SILU / ACT_GELU_TANH
 };
 
 __device__ __forceinline__ long mapped(const Args& p, int c) {
@@ -127,13 +142,17 @@ enum ZeroSide { kZeroNone, kZeroRows, kZeroCols };
 // t is the STORED position along the contraction, and the output offset
 // c_off. From PolicyBase, unless a policy says otherwise: a_tmap(p) /
 // b_tmap(p) (the operand's contraction index resolves through the block
-// map: the stored position of t is mapped(p, t)) and DIRECT (with one
+// map: the stored position of t is mapped(p, t)), DIRECT (with one
 // range the epilogue writes the output through c_off, with no second
-// launch).
+// launch), HIDDEN (#3: the output is act of the product, applied where
+// it is written) and GATED (#3: a second B, p.b2, in rings and
+// accumulators of its own; the output is act(A b2) * (A b)).
 struct PolicyBase {
   __host__ __device__ static bool a_tmap(const Args&) { return false; }
   __host__ __device__ static bool b_tmap(const Args&) { return false; }
   static constexpr bool DIRECT = false;
+  static constexpr bool HIDDEN = false;
+  static constexpr bool GATED = false;
 };
 
 // #8: A = dy [I=M, T=N]; B(t, j) = w[row(j), t]; out [M, nslots*B].
@@ -192,6 +211,25 @@ struct OpPolicy : PolicyBase {
     return (long)t * p.ldb + mapped(p, j);
   }
   // the output is compact and contiguous: reduce_splits_kernel writes it
+};
+
+// #3's hidden stage above the decode kernel's rows: #10's product, h
+// compact [M, kb*B] = act(x @ w_up[:, keep]) written by the epilogue of
+// one range, or by ffn_hidden_act_kernel from the ranges' partials.
+struct FfnPolicy : OpPolicy {
+  static constexpr const char* kName = "FfnPolicy";
+  static constexpr bool DIRECT = true;
+  static constexpr bool HIDDEN = true;
+  __device__ static long c_off(const Args& p, int i, int j) {
+    return (long)i * p.ldc + j;
+  }
+};
+
+// The same with w_gate (p.b2): h = act(x @ w_gate[:, keep]) * (x @
+// w_up[:, keep]).
+struct FfnGatedPolicy : FfnPolicy {
+  static constexpr const char* kName = "FfnGatedPolicy";
+  static constexpr bool GATED = true;
 };
 
 // #11: A = dyc [M, kb*B]; B(t, j) = w[j, col(t)]; out dense [M, K].
@@ -275,7 +313,8 @@ constexpr int kTcThreads = kTcRows / 32 * kTcWarpsN * 32;
 // Shared-memory layout of one ring stage for operands of type T. A is
 // [kTcRows][kLdT] when it is contiguous along t (#8, #10), else
 // [kTcDepth][kLdI] (#9, #12); B is [kTcCols][kLdT] when it is contiguous
-// along t (#8), else [kTcDepth][kLdJ] (#9, #10, #12). The pads (16 bytes
+// along t (#8), else [kTcDepth][kLdJ] (#3, #9, #10, #12); a gated
+// policy's second B follows it in the same layout. The pads (16 bytes
 // per t-row, 8 elements per i- or j-row) keep the fragment loads of a warp
 // on 32 distinct banks and every row 16-byte aligned.
 template <typename Policy, typename T>
@@ -288,7 +327,7 @@ struct TcLayout {
                                                : kTcDepth * kLdI;
   static constexpr int kB = Policy::B_CONTIG_T ? kTcCols * kLdT
                                                : kTcDepth * kLdJ;
-  static constexpr int kStage = kA + kB;
+  static constexpr int kStage = kA + (Policy::GATED ? 2 : 1) * kB;
   static constexpr int kBytes = kTcStages * kStage * (int)sizeof(T);
 };
 
@@ -308,14 +347,58 @@ int tc_smem_bytes(int dtype) {
 // (rows of the tile are t) is read by scalar loads in f32, where
 // ldmatrix has no 32-bit transpose: with a row pitch of 72 the 32 lanes
 // (t = k + tg, column g) fall on banks 8 tg + g, all distinct; in bf16 by
-// ldmatrix.trans.
+// ldmatrix.trans. A gated policy multiplies the same A fragments by its
+// second B (B2s) into acc2.
 template <typename Policy, typename T>
-__device__ __forceinline__ void tc_stage(float (&acc)[2][4][4], const T* As,
-                                         const T* Bs, int wm, int wn,
+__device__ __forceinline__ void tc_stage(float (&acc)[2][4][4],
+                                         float (&acc2)[2][4][4],
+                                         const T* As, const T* Bs,
+                                         const T* B2s, int wm, int wn,
                                          int lane) {
   using L = TcLayout<Policy, T>;
   const int lr = lane & 7, lm = lane >> 3;
   if constexpr (std::is_same<T, float>::value) {
+    // B's fragments at k, split for 3xTF32
+    auto b_frags = [&](const T* B, int k, unsigned (&bhi)[4][2],
+                       unsigned (&blo)[4][2]) {
+#pragma unroll
+      for (int nt = 0; nt < 4; nt += 2) {
+        unsigned v[4];
+        if constexpr (Policy::B_CONTIG_T) {
+          ldsm_x4(v, B + (wn * 32 + nt * 8 + (lm >> 1) * 8 + lr) * L::kLdT +
+                         k + (lm & 1) * 4);
+        } else {  // rows along j: ldmatrix has no 32-bit transpose
+          const T* c = B + (k + (lane & 3)) * L::kLdJ + wn * 32 + nt * 8 +
+                       (lane >> 2);
+          v[0] = __float_as_uint(c[0]);
+          v[1] = __float_as_uint(c[4 * L::kLdJ]);
+          v[2] = __float_as_uint(c[8]);
+          v[3] = __float_as_uint(c[4 * L::kLdJ + 8]);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          split_tf32(__uint_as_float(v[q]), bhi[nt + q / 2][q % 2],
+                     blo[nt + q / 2][q % 2]);
+      }
+    };
+    // the small products first, each pass over all eight tiles, so a
+    // tile's three dependent products are eight apart
+    auto mma3 = [](float (&c)[2][4][4], const unsigned (&ahi)[2][4],
+                   const unsigned (&alo)[2][4], const unsigned (&bhi)[4][2],
+                   const unsigned (&blo)[4][2]) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_tf32(c[mt][nt], alo[mt], bhi[nt]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_tf32(c[mt][nt], ahi[mt], blo[nt]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_tf32(c[mt][nt], ahi[mt], bhi[nt]);
+    };
 #pragma unroll
     for (int k = 0; k < kTcDepth; k += 8) {
       unsigned ahi[2][4], alo[2][4], bhi[4][2], blo[4][2];
@@ -337,41 +420,30 @@ __device__ __forceinline__ void tc_stage(float (&acc)[2][4][4], const T* As,
         for (int q = 0; q < 4; ++q)
           split_tf32(__uint_as_float(v[q]), ahi[mt][q], alo[mt][q]);
       }
+      b_frags(Bs, k, bhi, blo);
+      mma3(acc, ahi, alo, bhi, blo);
+      if constexpr (Policy::GATED) {
+        b_frags(B2s, k, bhi, blo);
+        mma3(acc2, ahi, alo, bhi, blo);
+      }
+    }
+  } else {
+    auto b_frags = [&](const T* B, int k, unsigned (&b)[4][2]) {
 #pragma unroll
       for (int nt = 0; nt < 4; nt += 2) {
         unsigned v[4];
-        if constexpr (Policy::B_CONTIG_T) {
-          ldsm_x4(v, Bs + (wn * 32 + nt * 8 + (lm >> 1) * 8 + lr) * L::kLdT +
-                         k + (lm & 1) * 4);
-        } else {  // rows along j: ldmatrix has no 32-bit transpose
-          const T* c = Bs + (k + (lane & 3)) * L::kLdJ + wn * 32 + nt * 8 +
-                       (lane >> 2);
-          v[0] = __float_as_uint(c[0]);
-          v[1] = __float_as_uint(c[4 * L::kLdJ]);
-          v[2] = __float_as_uint(c[8]);
-          v[3] = __float_as_uint(c[4 * L::kLdJ + 8]);
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          split_tf32(__uint_as_float(v[q]), bhi[nt + q / 2][q % 2],
-                     blo[nt + q / 2][q % 2]);
+        if constexpr (Policy::B_CONTIG_T)
+          ldsm_x4(v, B + (wn * 32 + nt * 8 + (lm >> 1) * 8 + lr) * L::kLdT +
+                         k + (lm & 1) * 8);
+        else
+          ldsm_x4_t(v, B + (k + (lm & 1) * 8 + lr) * L::kLdJ + wn * 32 +
+                           nt * 8 + (lm >> 1) * 8);
+        b[nt][0] = v[0];
+        b[nt][1] = v[1];
+        b[nt + 1][0] = v[2];
+        b[nt + 1][1] = v[3];
       }
-      // the small products first, each pass over all eight tiles, so a
-      // tile's three dependent products are eight apart
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], alo[mt], bhi[nt]);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ahi[mt], blo[nt]);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ahi[mt], bhi[nt]);
-    }
-  } else {
+    };
 #pragma unroll
     for (int k = 0; k < kTcDepth; k += 16) {
       unsigned a[2][4], b[4][2];
@@ -384,26 +456,29 @@ __device__ __forceinline__ void tc_stage(float (&acc)[2][4][4], const T* As,
           ldsm_x4_t(a[mt], As + (k + (lm >> 1) * 8 + lr) * L::kLdI + wm * 32 +
                                mt * 16 + (lm & 1) * 8);
       }
-#pragma unroll
-      for (int nt = 0; nt < 4; nt += 2) {
-        unsigned v[4];
-        if constexpr (Policy::B_CONTIG_T)
-          ldsm_x4(v, Bs + (wn * 32 + nt * 8 + (lm >> 1) * 8 + lr) * L::kLdT +
-                         k + (lm & 1) * 8);
-        else
-          ldsm_x4_t(v, Bs + (k + (lm & 1) * 8 + lr) * L::kLdJ + wn * 32 +
-                           nt * 8 + (lm >> 1) * 8);
-        b[nt][0] = v[0];
-        b[nt][1] = v[1];
-        b[nt + 1][0] = v[2];
-        b[nt + 1][1] = v[3];
-      }
+      b_frags(Bs, k, b);
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt]);
+      if constexpr (Policy::GATED) {
+        b_frags(B2s, k, b);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_bf16(acc2[mt][nt], a[mt], b[nt]);
+      }
     }
   }
+}
+
+// What the epilogue writes for an accumulator (u) and, gated, the second
+// one (g): the product, or #3's activation of it.
+template <typename Policy>
+__device__ __forceinline__ float epilogue_f(float u, float g, int act) {
+  if constexpr (Policy::GATED) return act_f(g, act) * u;
+  else if constexpr (Policy::HIDDEN) return act_f(u, act);
+  else return u;
 }
 
 // Two neighbouring output elements in one store (8 bytes in f32, 4 in
@@ -419,7 +494,8 @@ __device__ __forceinline__ void store2(__nv_bfloat16* dst, float v0,
 // Block (x, y, z): output tile (y, x) of the kept region [I_kept, J_kept],
 // contraction stages [z * steps_per_split, ...) -> f32 partials
 // partial[z][i][j] of that region, summed by a second launch (with one
-// range of a DIRECT policy, the output itself). With a
+// range of a DIRECT policy, the output itself; a gated policy's second
+// product at partial[gridDim.z + z]). With a
 // scattered output, blocks past the kept tiles (along x for zero columns,
 // along y for zero rows) write the pruned region's zeros while the
 // product runs.
@@ -428,6 +504,8 @@ __global__ void __launch_bounds__(kTcThreads)
 pruned_gemm_tc_kernel(Args p, float* __restrict__ partial,
                       int steps_per_split) {
   static_assert(kTcRows == kTcCols, "A and B share the column-copy layout");
+  static_assert(!Policy::GATED || (Policy::HIDDEN && !Policy::B_CONTIG_T),
+                "a second B is #3's w_gate, stored along j like w_up");
   using L = TcLayout<Policy, T>;
   constexpr int V = L::kVec;
   constexpr int kRowChunks = kTcDepth / V;          // copies per t-row
@@ -440,6 +518,7 @@ pruned_gemm_tc_kernel(Args p, float* __restrict__ partial,
   T* sm = reinterpret_cast<T*>(tc_smem);
   const T* __restrict__ a = static_cast<const T*>(p.a);
   const T* __restrict__ b = static_cast<const T*>(p.b);
+  const T* __restrict__ b2 = static_cast<const T*>(p.b2);
   const T zero = from_f<T>(0.f);
   const int i0 = blockIdx.y * kTcRows;
   const int j0 = blockIdx.x * kTcCols;
@@ -567,15 +646,19 @@ pruned_gemm_tc_kernel(Args p, float* __restrict__ partial,
       load_cols(b, b_col, p.ldb, L::kLdJ, j0, p.J_kept, Bs, t0, p.b_vec,
                 Policy::b_tmap(p),
                 [&](long tp, int j) { return Policy::b_off(p, tp, j); });
+    if constexpr (Policy::GATED)   // w_gate: w_up's strides and columns
+      load_cols(b2, b_col, p.ldb, L::kLdJ, j0, p.J_kept, Bs + L::kB, t0,
+                p.b_vec, Policy::b_tmap(p),
+                [&](long tp, int j) { return Policy::b_off(p, tp, j); });
   };
 
-  float acc[2][4][4];
+  float acc[2][4][4], acc2[2][4][4];   // acc2: a gated policy's second B
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
+      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = acc2[mt][nt][c] = 0.f;
 
   // the ring: stage kt lives in slot (kt - k_lo) % kTcStages; one commit
   // group per stage, empty past the split's end, so the wait counts hold
@@ -591,13 +674,15 @@ pruned_gemm_tc_kernel(Args p, float* __restrict__ partial,
     if (nk < k_hi) load(nk, (nk - k_lo) % kTcStages);
     cp_async_commit();
     const T* As = sm + ((kt - k_lo) % kTcStages) * L::kStage;
-    tc_stage<Policy, T>(acc, As, As + L::kA, wm, wn, lane);
+    tc_stage<Policy, T>(acc, acc2, As, As + L::kA, As + L::kA + L::kB, wm,
+                        wn, lane);
   }
   cp_async_wait<0>();
 
-  // one range of a DIRECT policy: the output itself, through c_off (rows
-  // contiguous along j); otherwise this range's f32 partial of the kept
-  // region, summed by the second launch
+  // one range of a DIRECT policy: the output itself (#3: its activation),
+  // through c_off (rows contiguous along j); otherwise this range's f32
+  // partial of the kept region (and, gated, of the second product),
+  // summed by the second launch
   if constexpr (Policy::DIRECT) {
     if (gridDim.z == 1) {
       T* c = static_cast<T*>(p.c);
@@ -614,7 +699,10 @@ pruned_gemm_tc_kernel(Args p, float* __restrict__ partial,
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt) {
             const int j = j0 + wn * 32 + nt * 8 + 2 * tg;
-            const float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
+            const float v0 = epilogue_f<Policy>(acc[mt][nt][2 * h],
+                                                acc2[mt][nt][2 * h], p.act);
+            const float v1 = epilogue_f<Policy>(
+                acc[mt][nt][2 * h + 1], acc2[mt][nt][2 * h + 1], p.act);
             if (pairs && j + 1 < p.J_kept) {
               store2(row + j, v0, v1);
             } else {
@@ -626,27 +714,32 @@ pruned_gemm_tc_kernel(Args p, float* __restrict__ partial,
       return;
     }
   }
-  float* out = partial + (long)blockIdx.z * p.I_kept * p.J_kept;
+  const long region = (long)p.I_kept * p.J_kept;
   const bool pairs = (p.J_kept & 1) == 0;
+  auto write_partial = [&](float* out, const float (&a)[2][4][4]) {
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = i0 + wm * 32 + mt * 16 + g + 8 * h;
-      if (i >= p.I_kept) continue;
-      float* row = out + (long)i * p.J_kept;
+      for (int h = 0; h < 2; ++h) {
+        const int i = i0 + wm * 32 + mt * 16 + g + 8 * h;
+        if (i >= p.I_kept) continue;
+        float* row = out + (long)i * p.J_kept;
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int j = j0 + wn * 32 + nt * 8 + 2 * tg;
-        const float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
-        if (pairs && j + 1 < p.J_kept) {
-          *reinterpret_cast<float2*>(row + j) = make_float2(v0, v1);
-        } else {
-          if (j < p.J_kept) row[j] = v0;
-          if (j + 1 < p.J_kept) row[j + 1] = v1;
+        for (int nt = 0; nt < 4; ++nt) {
+          const int j = j0 + wn * 32 + nt * 8 + 2 * tg;
+          const float v0 = a[mt][nt][2 * h], v1 = a[mt][nt][2 * h + 1];
+          if (pairs && j + 1 < p.J_kept) {
+            *reinterpret_cast<float2*>(row + j) = make_float2(v0, v1);
+          } else {
+            if (j < p.J_kept) row[j] = v0;
+            if (j + 1 < p.J_kept) row[j + 1] = v1;
+          }
         }
       }
-    }
+  };
+  write_partial(partial + blockIdx.z * region, acc);
+  if constexpr (Policy::GATED)
+    write_partial(partial + (gridDim.z + blockIdx.z) * region, acc2);
 }
 
 // The second pass of #8 without compact_out: y at Policy::c_off(i, j) =
@@ -670,9 +763,9 @@ static inline int tc_steps_per_split(const Args& p, int splits) {
   return (steps + splits - 1) / splits;
 }
 
-// The launches of a call (the split products, then the sum of the splits;
-// the products alone for one range of a DIRECT policy); returns the
-// count, 0 for shapes it refuses.
+// The launches of a call (the split products, then the sum of the splits,
+// with #3's activation for a HIDDEN policy; the products alone for one
+// range of a DIRECT policy); returns the count, 0 for shapes it refuses.
 template <typename Policy>
 int tc_config(const Args& p, int splits, int dtype, LaunchRec* r,
               bool names) {
@@ -701,7 +794,10 @@ int tc_config(const Args& p, int splits, int dtype, LaunchRec* r,
   // one thread per element of the kept region (the whole output when it
   // is compact)
   const dim3 sum_grid((unsigned)(((long)p.I_kept * p.J_kept + 255) / 256));
-  if (scattered)
+  if (Policy::HIDDEN)
+    set_launch(&r[1], names, sum_grid, 256, 0, "ffn_hidden_act_kernel<%s>",
+               dt_name(dtype));
+  else if (scattered)
     set_launch(&r[1], names, sum_grid, 256, 0,
                "reduce_splits_scatter_kernel<%s,%s>", Policy::kName,
                dt_name(dtype));
@@ -729,7 +825,8 @@ int tc_launch_t(Args p, float* partial, int splits, cudaStream_t st) {
             (Policy::A_CONTIG_T
                  ? p.T % V == 0 && (!Policy::a_tmap(p) || p.blk % V == 0)
                  : p.I_kept % V == 0 && (!Policy::A_MAPPED || p.blk % V == 0));
-  p.b_vec = aligned16(p.b) && p.ldb % V == 0 &&
+  p.b_vec = aligned16(p.b) && (!Policy::GATED || aligned16(p.b2)) &&
+            p.ldb % V == 0 &&
             (Policy::B_CONTIG_T
                  ? p.T % V == 0 && (!Policy::b_tmap(p) || p.blk % V == 0)
                  : p.J_kept % V == 0 && (!Policy::B_MAPPED || p.blk % V == 0));
@@ -744,6 +841,13 @@ int tc_launch_t(Args p, float* partial, int splits, cudaStream_t st) {
                                            tc_steps_per_split(p, splits));
   e = cudaGetLastError();
   if (e != cudaSuccess || n == 1) return (int)e;
+  if constexpr (Policy::HIDDEN) {
+    const long region = (long)p.I_kept * p.J_kept;
+    ffn_hidden_act_kernel<T><<<grid_of(r[1]), r[1].threads, 0, st>>>(
+        partial, Policy::GATED ? partial + used * region : nullptr,
+        static_cast<T*>(p.c), region, used, p.act);
+    return (int)cudaGetLastError();
+  }
   if constexpr (Policy::ZERO != kZeroNone) {
     if (Policy::scattered(p)) {
       reduce_splits_scatter_kernel<Policy, T>
@@ -907,6 +1011,36 @@ extern "C" int repro_block_pruned_matmul_tc_launch_config(
   return tc_config<BpmPolicy>(bpm_args(nullptr, nullptr, nullptr, nullptr, M,
                                        K, N, kb, block, x_compact),
                               splits, dtype, r, true);
+}
+
+// #3's hidden stage above the decode kernel's rows (fused_pruned_ffn.cu
+// holds the decode design). x [M, K], w_up / w_gate [K, H] (w_gate null:
+// ungated), keep [kb] -> h [M, kb*B] = act(x @ w_gate[:, keep]) * (x @
+// w_up[:, keep]), ungated act(x @ w_up[:, keep]); partial f32 scratch of
+// at least (1 + gated) * splits * M * kb*B (unused with one range); act
+// ACT_SILU or ACT_GELU_TANH.
+extern "C" int repro_pruned_ffn_hidden_tc(
+    const void* x, const void* w_up, const void* w_gate, const int* keep,
+    float* partial, void* h, int M, int K, int H, int kb, int block,
+    int splits, int act, int dtype, void* stream) {
+  if (act != ACT_SILU && act != ACT_GELU_TANH)
+    return (int)cudaErrorInvalidValue;
+  Args p = op_args(x, w_up, keep, h, M, K, H, kb, block);
+  p.b2 = w_gate;
+  p.act = act;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return w_gate != nullptr
+             ? tc_launch<FfnGatedPolicy>(p, partial, splits, dtype, st)
+             : tc_launch<FfnPolicy>(p, partial, splits, dtype, st);
+}
+
+extern "C" int repro_pruned_ffn_hidden_tc_launch_config(
+    int M, int K, int kb, int block, int gated, int splits, int dtype,
+    LaunchRec* r) {
+  const Args p = op_args(nullptr, nullptr, nullptr, nullptr, M, K, 0, kb,
+                         block);
+  return gated ? tc_config<FfnGatedPolicy>(p, splits, dtype, r, true)
+               : tc_config<FfnPolicy>(p, splits, dtype, r, true);
 }
 
 // #12. x [M, K], dyc [M, kb*B], order [nb] -> dw [K, nb*B]; partial f32

@@ -2,14 +2,20 @@
 main paths, for an A/B of two checkouts on one card: the backward family
 (#8-#12) and #2 at the ViT-1B train run's shapes (tp 4, 520 rows, block 8,
 the keep counts of its straggler, as ``chip_smoke.py`` phase 6 times
-them), and #2 at the Yi-6B decode shapes (8 slots, block 128: `wq`,
-`wk`, the FFN's down product with x_compact), each in float32 and
-bfloat16. It calls only the wrappers that every checkout of the port has,
-so the same file times any of them:
+them), #2 at the Yi-6B decode shapes (8 slots, block 128: `wq`,
+`wk`, the FFN's down product with x_compact), and #3 (the pruned FFN)
+at its two shapes: the ViT-1B train run's (520 rows, gelu, block 8,
+keep 30/256: its hidden stage on the tensor-core core) and the Yi-6B
+serving path's (8 slots, gated silu, block 128, keep 75/86: the decode
+design), each in float32 and bfloat16. #3's line splits its device time
+into its two stages, the hidden stage and the down product, by the
+``__global__`` functions each launches. It calls only the wrappers that
+every checkout of the port has, so the same file times any of them:
 
     PYTHONPATH=<checkout>/src python <this file>
     PYTHONPATH=src python <this file> --sweep       # #9 and #12's splits
     PYTHONPATH=src python <this file> --bpm-sweep   # #2's route by rows
+    PYTHONPATH=src python <this file> --ffn-sweep   # #3's route and ranges
     PYTHONPATH=src python <this file> --only wq     # cases naming "wq"
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
@@ -17,13 +23,18 @@ per case: the device time per call (the profiler's kernel time, inputs
 rotated past the 50 MB L2) and its share by ``__global__`` function; the
 host time per call (50 calls enqueued without a synchronise); and the
 device time of one ``torch.matmul`` on the gathered operands, the
-yardstick ``chip_smoke.py`` times with CUDA events. ``--sweep`` times #9
+yardstick ``chip_smoke.py`` times with CUDA events (none for #3: no one
+PyTorch call computes it). A function of the tensor-core core is named
+with its policy (``pruned_gemm_tc_kernel<BpmPolicy>``). ``--sweep`` times #9
 and #12 instead at each split count of their contraction (the wrapper's
 own choice replaced, then rounded to whole ranges of stages as the
 wrapper does). ``--bpm-sweep`` times #2 at M = 1, 8, 16, 32, 64, 128 and
 520 rows through each of its two kernels (the decode kernel and the
 tensor-core core, the route forced by ``ops.BPM_DECODE_MAX_ROWS``) at
 Yi-6B's `wq` and ViT-1B's `wq_r`: the sweep behind that threshold.
+``--ffn-sweep`` times #3 by stage the same way at its two shapes (both
+stages route on that threshold), then its decode kernel at the serving
+shape at each count of K ranges (``ops._ffn_decode_splits`` replaced).
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -47,6 +58,7 @@ def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     sweep = "--sweep" in args
     bpm_sweep = "--bpm-sweep" in args
+    ffn_sweep = "--ffn-sweep" in args
     only = args[args.index("--only") + 1] if "--only" in args else None
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -79,6 +91,9 @@ def main(argv=None) -> int:
             if us > 0:
                 name = re.search(r"(\w*kernel\w*)", e.key)
                 name = name[1] if name else e.key[:40]
+                policy = re.search(r"(\w+Policy)", e.key)
+                if policy:
+                    name += f"<{policy[1]}>"
                 by_fn[name] = by_fn.get(name, 0.0) + us / 1e3 / iters
         return sum(by_fn.values()), by_fn
 
@@ -186,6 +201,43 @@ def main(argv=None) -> int:
                 lambda s: torch.matmul(s[2], s[3])))
         return out
 
+    def ffn_cases(dtype):
+        """#3 at the train shape (tp 4, gelu, ungated, block 8) and the
+        serving shape (8 slots, gated silu, block 128): (kernel, case,
+        make, call, library); make returns x, w_up, w_down[, w_gate]."""
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device=dev)
+                    * scale).to(dtype)
+        out = []
+        for tag, rows_, K, H, blk, kb, gated in (
+                ("ViT train", M, D, FF, B, 30, False),
+                ("Yi serve", 8, 4096, 11008, 128, 75, True)):
+            keep = keep_of(H // blk, kb, 23 + kb)
+            act = ops.silu if gated else ops.gelu
+            out.append((
+                "fused_pruned_ffn",
+                f"{tag} x[{rows_},{K}] w_up[{K},{H}] "
+                f"{'gated silu' if gated else 'gelu'} block {blk} keep "
+                f"{kb}/{H // blk}",
+                lambda rows_=rows_, K=K, H=H, gated=gated: (
+                    rnd(rows_, K), rnd(K, H, scale=0.02),
+                    rnd(H, K, scale=0.02))
+                + ((rnd(K, H, scale=0.02),) if gated else ()),
+                lambda s, keep=keep, blk=blk, act=act: ops.fused_pruned_ffn(
+                    s[0], s[1], s[2], keep, s[3] if len(s) > 3 else None,
+                    act, blk),
+                None))
+        return out
+
+    def ffn_stages(fns):
+        """#3's device ms by stage: the down product's functions (#2's
+        decode kernel or its policy on the tensor-core core, and its split
+        sum), and the rest: the hidden stage."""
+        down = sum(ms for fn, ms in fns.items()
+                   if fn.startswith(("bpm_decode", "reduce_splits"))
+                   or "BpmPolicy" in fn)
+        return {"hidden": sum(fns.values()) - down, "down": down}
+
     def bpm_call(keep, blk, xc, K, dtype):
         """#2 through the public wrapper, or (x_compact, the FFN's down
         product) through the launcher the FFN wrapper calls."""
@@ -234,10 +286,65 @@ def main(argv=None) -> int:
                     torch.cuda.empty_cache()
         return 0
 
+    if ffn_sweep:
+        limit = ops.BPM_DECODE_MAX_ROWS
+        ffn_splits = ops._ffn_decode_splits
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            for tag, K, H, blk, kb, gated in (
+                    ("Yi serve", 4096, 11008, 128, 75, True),
+                    ("ViT train", D, FF, B, 30, False)):
+                keep = keep_of(H // blk, kb, 29)
+                act = ops.silu if gated else ops.gelu
+
+                def rnd(*shape, scale=1.0):
+                    return (torch.randn(shape, generator=gen, device=dev)
+                            * scale).to(dtype)
+                ws = (rnd(K, H, scale=0.02), rnd(H, K, scale=0.02),
+                      rnd(K, H, scale=0.02) if gated else None)
+                for rows_ in (1, 8, 16, 32, 64, 128, 520):
+                    x = rnd(rows_, K)
+                    row = {}
+                    for route, rmax in (("decode", 1 << 30), ("tc", 0)):
+                        ops.BPM_DECODE_MAX_ROWS = rmax
+                        row[route] = ffn_stages(device_ms(
+                            lambda i: ops.fused_pruned_ffn(
+                                x, ws[0], ws[1], keep, ws[2], act, blk),
+                            1)[1])
+                    ops.BPM_DECODE_MAX_ROWS = limit
+                    print(json.dumps({
+                        "kernel": "fused_pruned_ffn", "case":
+                        f"{tag} x[{rows_},{K}] w_up[{K},{H}] keep "
+                        f"{kb}/{H // blk}", "dtype": dname, "rows": rows_,
+                        "decode_stages": row["decode"],
+                        "tc_stages": row["tc"],
+                        "route": "decode" if rows_ <= limit else "tc"}),
+                        flush=True)
+                if gated:
+                    x = rnd(8, K)
+                    for splits in range(1, 17):
+                        ops._ffn_decode_splits = (
+                            lambda *a, s=splits: s)
+                        print(json.dumps({
+                            "kernel": "fused_pruned_ffn", "case":
+                            f"{tag} x[8,{K}] keep {kb}/{H // blk}",
+                            "dtype": dname, "splits": splits,
+                            "wrapper_splits": ffn_splits(
+                                8, K, kb * blk, dev),
+                            "stages": ffn_stages(device_ms(
+                                lambda i: ops.fused_pruned_ffn(
+                                    x, ws[0], ws[1], keep, ws[2], act, blk),
+                                1)[1])}), flush=True)
+                    ops._ffn_decode_splits = ffn_splits
+                del ws
+                torch.cuda.empty_cache()
+        return 0
+
     dw_partials = getattr(ops, "_dw_partials", None)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
-        for name, case, make, call, library in cases(dtype):
+        for name, case, make, call, library in cases(dtype) + ffn_cases(
+                dtype):
             if sweep and not name.endswith("_dw"):
                 continue
             if only is not None and only not in f"{name} {case}":
@@ -259,13 +366,15 @@ def main(argv=None) -> int:
                 ops._dw_partials = dw_partials
             else:
                 ms, fns = device_ms(lambda i: call(sets[i]), n_sets)
-                print(json.dumps({
-                    "kernel": name, "case": case, "dtype": dname,
-                    "device_ms": ms, "functions": fns,
-                    "host_us": host_us(lambda i: call(sets[i])),
-                    "library_device_ms": device_ms(
-                        lambda i: library(sets[i]), n_sets)[0]}),
-                    flush=True)
+                row = {"kernel": name, "case": case, "dtype": dname,
+                       "device_ms": ms, "functions": fns}
+                if name == "fused_pruned_ffn":
+                    row["stages"] = ffn_stages(fns)
+                row["host_us"] = host_us(lambda i: call(sets[i]))
+                row["library_device_ms"] = (
+                    device_ms(lambda i: library(sets[i]), n_sets)[0]
+                    if library is not None else None)
+                print(json.dumps(row), flush=True)
             del sets, first
             torch.cuda.empty_cache()
     return 0

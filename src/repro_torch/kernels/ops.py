@@ -20,8 +20,9 @@ wrapper: CUDA source (under ``csrc/``) <- the TPU kernel it replaces
 * block_pruned_matmul: block_pruned_matmul.cu up to BPM_DECODE_MAX_ROWS
   rows, the tensor-core core of pruned_grad.cu above <-
   pruned_matmul.py:block_pruned_matmul_2d
-* fused_pruned_ffn: fused_pruned_ffn.cu (+ the block-pruned product) <-
-  pruned_matmul.py:fused_ffn_2d
+* fused_pruned_ffn: its hidden stage in fused_pruned_ffn.cu up to
+  BPM_DECODE_MAX_ROWS rows, on the tensor-core core of pruned_grad.cu
+  above; then the block-pruned product <- pruned_matmul.py:fused_ffn_2d
 * fused_decode_attention: gqa_decode_attn.cu (row policy SlotRows) <-
   decode_attn.py:gqa_decode_attn_2d
 * fused_paged_decode_attention: gqa_decode_attn.cu (the same body, row
@@ -211,18 +212,22 @@ def inverse_order(keep_idx: torch.Tensor, nb: int) -> torch.Tensor:
 TC_TILE, TC_DEPTH = 64, 32
 
 
+def _tc_split_count(rows: int, cols: int, depth: int, device) -> int:
+    """The split count of the tensor-core core for a kept output of
+    ``rows x cols`` over a contraction of ``depth``: at most one range per
+    stage; about two blocks per SM, which measured faster than four at
+    the train shapes (fewer partials to sum)."""
+    return _splits(-(-depth // TC_DEPTH),
+                   -(-rows // TC_TILE) * -(-cols // TC_TILE), device,
+                   per_sm=2)
+
+
 def _tc_partials(rows: int, cols: int, depth: int, device,
                  direct: bool = False):
-    """The split count of the tensor-core core for a kept output of
-    ``rows x cols`` over a contraction of ``depth`` (at most one range per
-    stage; about two blocks per SM, which measured faster than four at
-    the train shapes: fewer partials to sum), and its f32 partial buffer
-    [splits, rows, cols]. ``direct``: the kernel's epilogue writes the
-    output itself when there is one range (#2, #11), and the buffer is
-    empty."""
-    splits = _splits(-(-depth // TC_DEPTH),
-                     -(-rows // TC_TILE) * -(-cols // TC_TILE), device,
-                     per_sm=2)
+    """:func:`_tc_split_count` and its f32 partial buffer [splits, rows,
+    cols]. ``direct``: the kernel's epilogue writes the output itself when
+    there is one range (#2, #11), and the buffer is empty."""
+    splits = _tc_split_count(rows, cols, depth, device)
     n = 0 if direct and splits == 1 else splits
     return splits, torch.empty((n, rows, cols), dtype=torch.float32,
                                device=device)
@@ -667,27 +672,57 @@ def fused_pruned_ffn_plain(x2d, w_up, w_down, keep_idx, w_gate, act_fn,
     return (h.to(w_down.dtype).float() @ wd.float()).to(x2d.dtype)
 
 
+# #3's decode kernel (fused_pruned_ffn.cu): compact columns per block (two
+# groups of 64, each down 4 of its 8 warps), rows of x a block stages in
+# shared memory at most (8 rows of x: 66 KB in f32)
+FFN_COLS, FFN_CHUNK_WARPS, FFN_X_ROWS = 128, 4, 2048
+
+
+def _ffn_decode_splits(M: int, K: int, C: int, device) -> int:
+    """K ranges of #3's decode kernel for h [M, C]: as many as keep every
+    block resident at once (two per SM over the 128-column and 8-row
+    tiles, one wave, as #2's decode kernel; the range sweep of
+    grad_timing.py --ffn-sweep, PERF.md), but at least enough that a
+    range's x fits its stage (FFN_X_ROWS rows) and at most as many as
+    leave each warp two chunks of 16 rows."""
+    chunks = -(-K // BPM_ROWS)
+    tiles = -(-C // FFN_COLS) * -(-M // BPM_SLOTS)
+    lo = -(-K // FFN_X_ROWS)
+    hi = max(lo, chunks // (2 * FFN_CHUNK_WARPS))
+    return max(lo, min(hi, 2 * _device_sms(device) // tiles))
+
+
 def _launch_pruned_ffn(x2d, w_up, w_down, w_gate, keep, act, block, dt):
+    """Run #3 for x2d's rows: the compact hidden h [M, kb*block] by the
+    decode kernel up to BPM_DECODE_MAX_ROWS rows and the tensor-core core
+    above (the down product's threshold too), then the down product
+    through #2's launcher reading h as compact x. Returns y and the two
+    stages' config keys."""
     M, K = x2d.shape
     H = w_up.shape[1]
     kb = keep.shape[0]
     C = kb * block
+    gated = w_gate is not None
     dev = x2d.device
-    lib = _build.library().lib
-    splits = _splits(-(-K // 128), -(-C // 128) * -(-M // 8), dev)
-    part_up = torch.empty((splits, M, C), dtype=torch.float32, device=dev)
-    part_gate = (torch.empty_like(part_up) if w_gate is not None
-                 else part_up)
+    if M <= BPM_DECODE_MAX_ROWS:
+        entry, splits = "repro_pruned_ffn_hidden", _ffn_decode_splits(
+            M, K, C, dev)
+    else:
+        entry, splits = "repro_pruned_ffn_hidden_tc", _tc_split_count(
+            M, C, K, dev)
+    # both products' f32 partials, when the contraction is split
+    partial = torch.empty(((1 + gated) * splits if splits > 1 else 0, M, C),
+                          dtype=torch.float32, device=dev)
     h = torch.empty((M, C), dtype=x2d.dtype, device=dev)
-    err = lib.repro_pruned_ffn_hidden(
+    err = getattr(_build.library().lib, entry)(
         x2d.data_ptr(), w_up.data_ptr(),
         None if w_gate is None else w_gate.data_ptr(), keep.data_ptr(),
-        part_up.data_ptr(), part_gate.data_ptr(), h.data_ptr(),
-        M, K, H, kb, block, splits, act, dt, _stream(dev))
+        partial.data_ptr(), h.data_ptr(), M, K, H, kb, block, splits, act, dt,
+        _stream(dev))
     _build.check(err, "fused_pruned_ffn (hidden)")
     y, down = _launch_block_pruned(h, w_down, keep, block, dt, x_compact=True,
                                    K=w_down.shape[0])
-    return y, (("repro_pruned_ffn_hidden", M, K, kb, block, splits, dt), down)
+    return y, ((entry, M, K, kb, block, int(gated), splits, dt), down)
 
 
 class _FusedPrunedFFN(torch.autograd.Function):
@@ -760,8 +795,10 @@ def fused_pruned_ffn(x: torch.Tensor, w_up: torch.Tensor,
 
     x: [..., K]; w_up/w_gate: [K, H]; w_down: [H, d_out]; keep_idx: [kb]
     kept H-block ids. On the card: the compact hidden stage
-    (``csrc/fused_pruned_ffn.cu``) then the block-pruned down product;
-    ``act_fn`` must be :func:`silu` or :func:`gelu`.
+    (``csrc/fused_pruned_ffn.cu`` up to BPM_DECODE_MAX_ROWS rows, the
+    tensor-core core of ``csrc/pruned_grad.cu`` above) then the
+    block-pruned down product; ``act_fn`` must be :func:`silu` or
+    :func:`gelu`.
     """
     *lead, K = x.shape
     _validate(w_up.shape[1], w_down.shape[0], keep_idx, block,
