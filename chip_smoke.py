@@ -54,6 +54,13 @@ Phases, each printing one line of its own; any failure exits non-zero:
               (DeepSeek: against its plain path, since its dense layer is
               wider than the "ffn" lists, which a source keeps alone, as
               in the JAX package).
+   geometry-reference — the same two-layer Yi-6B at tp 4 under the ragged
+              static shard geometry (25, 49, 49, 49) of its 172 FFN
+              blocks of 64 (weights padded to 4 x 49 x 64 lanes): a plan
+              that resizes rank 1 and migrates 2 blocks from rank 0, the
+              kernel path against the plain path, and the lossless plan
+              on the kernel path against the tp-1 dense step on the
+              canonical weights.
 4. serve    — the port's ServeEngine serves 16 requests at full Yi-6B
               width (32 layers, bf16, random weights from a seed) under
               ZERO-resizing with a contended simulated 8-rank group and
@@ -69,18 +76,26 @@ Phases, each printing one line of its own; any failure exits non-zero:
    paged-profile — eight decode-only steps of the paged engine under
               torch.profiler, as phase 5 (#4 on its main path; phase 5
               must run #1's SlotRows form, this one #4's PagedRows form).
-   semi-serve — the same traffic at full Yi-6B width over a TP group of
-              4 ranks under SEMI (lossless β, 8 simulated ranks, at most 3
-              migration sources): #1 and #3 must launch, a step must
-              migrate, a step may resize only a straggler past the
+   semi-serve — the first 8 of the requests at full Yi-6B width over a TP
+              group of 4 ranks under SEMI (lossless β, 8 simulated ranks,
+              at most 3 migration sources): #1 and #3 must launch, a step
+              must migrate, a step may resize only a straggler past the
               migrating prefix; host wall tokens/s, step wall p50 / p95,
-              peak memory; then 8 of the requests over 4 simulated ranks
-              (no fold, contention p 0.2), where a step must migrate and
-              none may resize; then the uncontended tp-1 dense run of the
-              same traffic, and the share of requests whose tokens agree
-              (information only).
-   mla-serve — the same traffic and control at full DeepSeek-V2-Lite
-              width (27 layers, MLA + MoE, bf16), over the slot cache
+              peak memory; then the same 8 over 4 simulated ranks (no
+              fold, contention p 0.2), where a step must migrate and none
+              may resize; then the uncontended tp-1 dense run of them, and
+              the share of requests whose tokens agree (information only).
+   geometry-serve — 8 of the requests at full Yi-6B width over 4 ranks
+              under the geometry (25, 49, 49, 49), SEMI lossless over 4
+              simulated ranks: (a) a static chi 2 straggler, which the
+              split absorbs: nothing may be planned, #1 and #3 (rank 0's
+              25-of-49 keep) must launch; (b) a round-robin chi 4
+              straggler: a step must migrate, every shed below 25; wall
+              tokens/s, step p50 / p95 and peak memory of both beside the
+              equal split's.
+   mla-serve — the first 8 of the requests and the same control at full
+              DeepSeek-V2-Lite width (27 layers, MLA + MoE, bf16), over
+              the slot cache
               (#3, #5 must launch) and over a paged pool of 160 pages
               (#3, #6), which holds the traffic's peak, so both runs step
               through the same plans; the share of requests whose tokens
@@ -99,6 +114,14 @@ Phases, each printing one line of its own; any failure exits non-zero:
               train shapes (#2 at wq_r and wo_r on the tensor-core core,
               with the library's device time; #3 twice for the same bits,
               and by stage as in phase 2).
+   geometry-kernels — #3 at the ragged serving shape (Yi-6B tp 4, a
+              rank's 49 x 64 = 3136 lanes, 8 rows, keeps 25 and 37 of 49,
+              f32 and bf16) and the ragged train shape (ViT-1B tp 4, 293 x
+              8 = 2344 lanes, 520 rows, keeps 146 / 292 / 293), and #8-#12
+              at the latter (keeps 146, 292): every block outside the keep
+              NaN in the weights, #8-#12 into NaN-filled outputs, twice
+              for the same bits, the same tolerances; the rank-0 keeps
+              timed beside the plain version and the bound.
 7. train-reference — one controlled step (rank 0 resized and a migration
               source) of a two-layer, full-width ViT-1B in f32 at tp 4:
               loss and every gradient, kernel path against plain path.
@@ -107,6 +130,16 @@ Phases, each printing one line of its own; any failure exits non-zero:
               steps; every launch count set to 0 just before and read just
               after, and each kernel of the path must be > 0; every loss
               finite; at least one resized and one migrating step.
+   geometry-train — one controlled step of the two-layer ViT-1B at tp 4
+              under the ragged geometry (146, 293, 293, 292), kernel path
+              against plain path (loss and every gradient); then
+              run_training on full-width ViT-1B at tp 4 under SEMI with
+              geometry "chi" (seeded from a round-robin chi 2 straggler on
+              rank 0, absorbed; from step 2 a residual straggler on rank
+              1) for 4 steps: every loss finite, #2, #3, #8-#12 launched,
+              and every padding lane of the FFN weights and of both AdamW
+              moments exactly 0 after the run; images/s, step p50 and
+              peak memory beside phase 8's.
 9. train-profile — three steps of the same model under the run's plan,
               under torch.profiler: wall vs device time, by family, and
               the block-pruned kernels by name (#2 and both stages of #3
@@ -1189,6 +1222,88 @@ def main():
               lossless=False)
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------ geometry reference
+    # the ragged static shard geometry (25, 49, 49, 49) of Yi-6B's 172
+    # FFN blocks of 64 (geometry_from_chi([2, 1, 1, 1], 172, 64)): each
+    # rank's 3136-lane view holds its real blocks first, zero padding
+    # after; two layers, full width, f32, tp 4, three decode steps from a
+    # cache of random rows: (a) rank 0 the source of a 2-block shed (it
+    # keeps 23 of its 25 real blocks) and rank 1 resized to bucket 3 (31
+    # of 49), the kernel path against the plain path; (b) the lossless
+    # plan (buckets 0, rank 0 migrating) on the kernel path against the
+    # tp-1 dense step on the canonical weights
+    import copy
+    from repro_torch import bridge
+    from repro_torch.core import geometry as geom_lib
+    geo_serve = geom_lib.geometry_from_chi([2, 1, 1, 1], D_FF // 64, 64)
+    if geo_serve.sizes != (25, 49, 49, 49):
+        raise SystemExit(f"geometry-reference: {geo_serve.describe()}")
+    canon = lm_lib.init(torch.Generator(device=dev).manual_seed(16), cfg2,
+                        torch.float32, dev)
+    padded = bridge.expand_ffn_modules(copy.deepcopy(canon), geo_serve)
+    pcfg2 = geom_lib.apply_geometry_cfg(cfg2, geo_serve)
+    st_geo = PlanStatic(block_size=64, tp_size=4, mig_shed=(2,),
+                        geometry=geo_serve.sizes)
+    st_geo = dataclasses.replace(
+        st_geo, scope_blocks=scopes_lib.scope_block_table(pcfg2, st_geo))
+    sc_geo = scopes_lib.control_scopes(pcfg2, st_geo)
+    prng_ = np.random.default_rng(5)
+    # the attention scopes' lists shuffled; the FFN keeps the canonical
+    # order under a geometry, as the control plane dispatches it
+    pr_geo = scopes_lib.plan_pri_arrays(
+        sc_geo, {n: prng_.permutation(nb * (1 if scopes_lib.SCOPE_LAYOUT[n]
+                                             == "col" else 4))
+                 for n, nb in sc_geo.items() if n != "ffn"}, 4,
+        geometry=geo_serve.sizes, device=dev)
+    start = np.asarray([16, 40, 100, 200, 500, 31, 63, 700], np.int32)
+    gc_ = torch.Generator(device=dev).manual_seed(17)
+    cache0 = tree_map(
+        lambda t: torch.randn(t.shape, generator=gc_, device=dev) * 0.5,
+        lm_lib.init_cache(cfg2, B, 1024, torch.float32, dev))
+    toks = torch.from_numpy(np.random.default_rng(16).integers(
+        0, VOCAB, (B,)).astype(np.int32)).to(dev)
+
+    def geo_run(params, cfg, buckets, use_kernel):
+        cache = tree_map(lambda t: t.clone(), cache0)
+        ctx = (ControlContext(static=st_geo, bucket_by_rank=buckets,
+                              pri=pr_geo, use_kernel=use_kernel, mig_src=[0])
+               if buckets is not None else None)
+        ck = dataclasses.replace(cfg, fused_decode_attn=use_kernel)
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            for t in range(3):
+                pos = torch.from_numpy(start + t).to(dev)
+                if t == 2:
+                    pos[-1] = 2 ** 30
+                out, cache = lm_lib.decode_step(params, ck, cache, toks, pos,
+                                                ctx=ctx)
+        torch.cuda.synchronize()
+        return out[:-1].float(), ops.launch_counts()
+
+    (lk, counts), (lp, _) = (geo_run(padded, pcfg2, [0, 3, 0, 0], True),
+                             geo_run(padded, pcfg2, [0, 3, 0, 0], False))
+    (ll, _), (ld, _) = (geo_run(padded, pcfg2, [0, 0, 0, 0], True),
+                        geo_run(canon, cfg2, None, False))
+    e, m = errs(lk, lp)
+    e2, m2 = errs(ll, ld)
+    geo_ref_kernels = ("block_pruned_matmul", "fused_pruned_ffn",
+                       "fused_decode_attention")
+    ok = (bool(torch.isfinite(lk).all()) and bool(torch.isfinite(ll).all())
+          and e <= F32_TOL * m and e2 <= F32_TOL * m2
+          and all(counts[k] > 0 for k in geo_ref_kernels))
+    say("geometry-reference", f"yi-6b width, 2 layers, f32, tp 4, "
+        f"{geo_serve.describe()}: buckets [0,3,0,0] + source 0 shedding 2 "
+        f"blocks, kernel path vs plain path logits max|err| {e:.3e} "
+        f"(max|ref| {m:.3e}); lossless plan (buckets 0, source 0) on the "
+        f"kernel path vs the tp-1 dense step on the canonical weights "
+        f"max|err| {e2:.3e} (max|ref| {m2:.3e}); launches "
+        f"{({k: counts[k] for k in geo_ref_kernels})} "
+        f"{'ok' if ok else 'FAIL'}")
+    del canon, padded, cache0
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit("geometry reference check failed")
+
     # ---------------------------------------------------------------- 4
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1397,6 +1512,10 @@ def main():
                 probs.append(f"{k} never launched")
         if expect_resize and resized_ == 0:
             probs.append("no step ran a resized plan")
+        e.smoke_stats = {
+            "tok_s": n_tok_ / wall_, "p50_ms": np.percentile(walls_, 50) * 1e3,
+            "p95_ms": np.percentile(walls_, 95) * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
         say(tag, f"{n_req} requests, {n_tok_} tokens, {len(e.history)} steps in "
             f"{wall_:.2f} s wall (engine built in {t_init:.1f} s): "
             f"{n_tok_ / wall_:.1f} tokens/s wall; step wall p50 "
@@ -1436,7 +1555,8 @@ def main():
     free()
 
     # ------------------------------------------------------ SEMI serving
-    # the same traffic at full Yi-6B width over a TP group of 4 ranks
+    # the first 8 requests (8 of 16 since PR 26, to keep the run inside
+    # half its time limit) at full Yi-6B width over a TP group of 4 ranks
     # (emulated in one process) under SEMI with the lossless β-policy: up
     # to 3 of the 8 simulated ranks' stragglers migrate their FFN blocks
     # to the helpers (folded onto the 4 real ranks), so #3 runs on each
@@ -1454,7 +1574,7 @@ def main():
     eng, semi_tokens, semi_launches, problems = serve_run(
         "semi-serve", "yi-6b", full, control_semi,
         ("fused_decode_attention", "fused_pruned_ffn"),
-        expect_resize=False, tp=4)
+        expect_resize=False, n_req=8, tp=4)
     migrating = [h for h in eng.history if h.get("mig_srcs")]
     resized_semi = [h for h in eng.history if h.get("max_bucket", 0) > 0]
     past_prefix = [h for h in resized_semi
@@ -1493,6 +1613,7 @@ def main():
     say("semi-serve", f"tp 4, SEMI lossless, sim_ranks 4, max_sources 3, "
         f"contention p 0.2: {len(migrating)} of {len(eng.history)} steps "
         f"migrated, {len(resized_semi)} resized")
+    semi4_stats = eng.smoke_stats
     del eng
     free()
     if problems:
@@ -1500,7 +1621,7 @@ def main():
                          f"{problems}")
     eng, dense_tokens, _, problems = serve_run(
         "semi-serve", "yi-6b", full, ControlConfig(fused_attention=True),
-        ("fused_decode_attention",), expect_resize=False)
+        ("fused_decode_attention",), expect_resize=False, n_req=8)
     prefix = [next((j for j, (a, b) in enumerate(zip(
         semi_tokens[u], dense_tokens[u])) if a != b), 64)
         for u in semi_tokens]
@@ -1513,11 +1634,72 @@ def main():
     if problems:
         raise SystemExit(f"dense tp-1 serve check failed: {problems}")
 
+    # ------------------------------------------------- geometry serving
+    # full Yi-6B (bf16, 8 slots) at tp 4 under the ragged geometry (25, 49,
+    # 49, 49) of the geometry-reference phase, SEMI lossless over 4
+    # simulated ranks, 8 of the requests: (a) a static chi 2 straggler on
+    # rank 0, which the static split absorbs: the controller must plan
+    # nothing (no straggler, every bucket 0), so #3 runs only on rank 0's
+    # 25-of-49 keep (the others take the dense shortcut) and must launch,
+    # as #1 must; (b) a round-robin chi 4 straggler, which the split does
+    # not absorb: a step must migrate, every shed below rank 0's 25 blocks
+    control_geo = ControlConfig(
+        mode="semi", hetero_kind="static", chi=2.0, sim_ranks=4,
+        max_sources=3, beta_policy="lossless", block_size=64,
+        fused_attention=True, use_kernel=True, seed=0,
+        geometry=geo_serve.sizes)
+    geo_stats, geo_tokens = {}, {}
+    for run_tag, ctl in (
+            ("(a) static chi 2", control_geo),
+            ("(b) round_robin chi 4", dataclasses.replace(
+                control_geo, hetero_kind="round_robin", chi=4.0))):
+        eng, geo_tokens[run_tag], geo_launches, problems = serve_run(
+            "geometry-serve", "yi-6b", full, ctl,
+            ("fused_decode_attention", "fused_pruned_ffn"),
+            expect_resize=False, n_req=8, tp=4)
+        hist = eng.history
+        migrating = [h for h in hist if h.get("mig_srcs")]
+        if run_tag.startswith("(a)"):
+            if any(h.get("stragglers") or h.get("max_bucket", 0) > 0
+                   or h.get("mig_srcs") for h in hist):
+                problems.append("the controller planned a mitigation the "
+                                "static split should have absorbed")
+        else:
+            if not migrating:
+                problems.append("no step executed a migration")
+            if any(max(h["mig_shed"]) >= min(geo_serve.sizes)
+                   for h in migrating):
+                problems.append("a shed reached the smallest rank's blocks")
+        geo_stats[run_tag] = eng.smoke_stats
+        say("geometry-serve", f"{run_tag}, {geo_serve.describe()}: "
+            f"{len(migrating)} of {len(hist)} steps migrated (sheds "
+            f"{sorted({m for h in migrating for m in h['mig_shed']})}), "
+            f"{sum(1 for h in hist if h.get('max_bucket', 0) > 0)} resized,"
+            f" {sum(1 for h in hist if h.get('stragglers'))} with a "
+            f"straggler; trace counts {eng.trace_counts()}")
+        del eng
+        free()
+        if problems:
+            raise SystemExit(f"geometry serve check {run_tag} failed: "
+                             f"{problems}")
+    for run_tag, st_ in geo_stats.items():
+        say("geometry-serve", f"{run_tag}: {st_['tok_s']:.1f} tokens/s wall, "
+            f"step p50 {st_['p50_ms']:.2f} ms, p95 {st_['p95_ms']:.2f} ms, "
+            f"peak {st_['peak_gib']:.2f} GiB; equal split (semi-serve, 4 "
+            f"simulated ranks, 8 requests): {semi4_stats['tok_s']:.1f} "
+            f"tokens/s, p50 {semi4_stats['p50_ms']:.2f} ms, p95 "
+            f"{semi4_stats['p95_ms']:.2f} ms, peak "
+            f"{semi4_stats['peak_gib']:.2f} GiB; requests whose tokens agree "
+            f"with the tp-1 dense run: "
+            f"{agreement(geo_tokens[run_tag], dense_tokens):.3f} (bf16; "
+            "information only)")
+
     # ------------------------------------------------------ MLA + MoE
     # full-width DeepSeek-V2-Lite (27 layers: a dense first layer, 26 MoE
     # layers of 64 routed experts top-6 + 2 shared; MLA with a 512-wide
-    # latent; bf16, random weights from the seed), the same traffic and
-    # control, over the slot cache (#5) and over the paged pool (#6). The
+    # latent; bf16, random weights from the seed), the first 8 requests
+    # (8 of 16 since PR 26) and the same control, over the slot cache
+    # (#5) and over the paged pool (#6). The
     # pool holds the traffic's peak of 8 x 20 pages, so the paged run
     # never preempts and both runs step through the same plans: their
     # tokens compare #5 with #6 (one body, rows split alike). The controlled
@@ -1528,7 +1710,7 @@ def main():
                                fused_attention=True, use_kernel=True, seed=0)
     eng, ds_fixed_tokens, mla_launches, problems = serve_run(
         "mla-serve", "deepseek-v2-lite-16b", ds_full, control_ds,
-        ("fused_pruned_ffn", "fused_mla_decode_attention"))
+        ("fused_pruned_ffn", "fused_mla_decode_attention"), n_req=8)
     if problems:
         raise SystemExit(f"MLA serve (slot cache) check failed: {problems}")
     del eng
@@ -1536,7 +1718,7 @@ def main():
     eng, ds_paged_tokens, mla_paged_launches, problems = serve_run(
         "mla-serve", "deepseek-v2-lite-16b", ds_full, control_ds,
         ("fused_pruned_ffn", "fused_paged_mla_decode_attention"),
-        page_size=16, num_pages=160)
+        n_req=8, page_size=16, num_pages=160)
     say("mla-serve", f"requests whose tokens agree between the slot-cache "
         f"and the paged run: {agreement(ds_paged_tokens, ds_fixed_tokens):.3f}"
         " (information only)")
@@ -1577,7 +1759,7 @@ def main():
             -1, w.shape[1])
 
     def grad_case(name, case, dtype, make, kernel, plain, library, out_shape,
-                  nbytes, flops, rep, timed=True):
+                  nbytes, flops, rep, timed=True, phase="grad-kernels"):
         """One kernel check: its output starts as NaN (a skipped element
         shows), a second call into a fresh NaN buffer must give the same
         bits, then the timings when ``timed``."""
@@ -1591,7 +1773,7 @@ def main():
             raise SystemExit(f"{name}: the kernel did not write into `out`")
         if not torch.equal(got, again):
             failures.append(f"{name} {case} {dtype}: two runs differ")
-            say("grad-kernels", f"{name} {case}: two runs differ (FAIL)")
+            say(phase, f"{name} {case}: two runs differ (FAIL)")
         ref = plain(sets[0])
         timings = {}
         if timed:
@@ -1603,7 +1785,7 @@ def main():
                 "library_ms": (time_ms(lambda i: library(sets[i]), n_sets)
                                if library is not None else None)}
         record(name, case, dtype, got, ref, timings, nbytes, flops, rep,
-               "grad-kernels")
+               phase)
 
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.finfo(dtype).bits // 8
@@ -1843,6 +2025,156 @@ def main():
         "within tolerance; the backward family's outputs bit-identical "
         "between two runs")
 
+    # ------------------------------------------------- geometry kernels
+    # #3 and #8-#12 at the shapes a ragged shard geometry gives them: a
+    # rank's padded view is no multiple of the 64- and 128-wide tiles the
+    # kernels were tuned at. Serving: full Yi-6B at tp 4 under (25, 49,
+    # 49, 49), block 64, a rank's 49 x 64 = 3136 lanes, 8 rows, gated
+    # silu; rank 0 keeps its 25 real blocks at bucket 0, a 49-block rank
+    # 37 of them at bucket 2 (the lists keep the canonical order under a
+    # geometry, so a keep is a prefix). Training: full ViT-1B at tp 4
+    # under (146, 293, 293, 292), block 8, 293 x 8 = 2344 lanes, 520 rows,
+    # gelu, f32; keeps 146 (rank 0), 292 (rank 3) and 293. Every block
+    # outside the keep (the padding among them) is NaN in the weights, so
+    # a kernel that reads one shows; #8-#12 also write into NaN-filled
+    # outputs; each twice, for the same bits; each timed against its
+    # plain version and its bound (the rank-0 keeps)
+    n_checked = len(checked)
+
+    def nan_outside(w, keep_n, block, axis):
+        """``w`` with every block past the first ``keep_n`` NaN."""
+        w = w.clone()
+        if axis == 1:
+            w[:, keep_n * block:] = float("nan")
+        else:
+            w[keep_n * block:] = float("nan")
+        return w
+
+    def prefix(kc):
+        return torch.arange(kc, dtype=torch.int32, device=dev)
+
+    for tag, dtype, M_, K_, nb_, blk_, kcs, gated, act in (
+            ("serving", torch.float32, B, D_MODEL, 49, 64, (25, 37), True,
+             ops.silu),
+            ("serving", torch.bfloat16, B, D_MODEL, 49, 64, (25, 37), True,
+             ops.silu),
+            ("train", torch.float32, M_T, D_V, 293, B8, (146, 292, 293),
+             False, ops.gelu)):
+        es = torch.finfo(dtype).bits // 8
+        H_ = nb_ * blk_
+        for j, kc in enumerate(kcs):
+            keep = prefix(kc)
+            n_sets = copies_for((3 if gated else 2) * K_ * H_ * es) \
+                if j == 0 else 1
+            sets = [(rnd((M_, K_), dtype),
+                     nan_outside(rnd((K_, H_), dtype, 0.02), kc, blk_, 1),
+                     nan_outside(rnd((H_, K_), dtype, 0.02), kc, blk_, 0),
+                     nan_outside(rnd((K_, H_), dtype, 0.02), kc, blk_, 1)
+                     if gated else None) for _ in range(n_sets)]
+
+            def kern(i, keep=keep, sets=sets, act=act, blk_=blk_):
+                x_, wu_, wd_, wg_ = sets[i]
+                return ops.fused_pruned_ffn(x_, wu_, wd_, keep, wg_, act,
+                                            blk_)
+
+            def plain(i, keep=keep, sets=sets, act=act, blk_=blk_):
+                x_, wu_, wd_, wg_ = sets[i]
+                return ops.fused_pruned_ffn_plain(x_, wu_, wd_, keep, wg_,
+                                                  act, blk_)
+            got, again = kern(0), kern(0)
+            torch.cuda.synchronize()
+            case = (f"ragged {tag} x[{M_},{K_}] w[{K_},{H_}] block {blk_} "
+                    f"keep {kc}/{nb_}, unkept blocks NaN")
+            if not torch.equal(got, again):
+                failures.append(f"fused_pruned_ffn {case} {dtype}: two runs "
+                                "differ")
+            C_ = kc * blk_
+            if gated:
+                nbytes = (2 * M_ * K_ + 3 * K_ * C_) * es + kc * 4
+                flops = 2 * M_ * K_ * C_ * 2 + 2 * M_ * C_ * K_
+            else:
+                nbytes = (2 * M_ * K_ + 2 * K_ * C_) * es
+                flops = 2 * 2 * M_ * K_ * C_
+            timings = {}
+            if j == 0:
+                timings = {"ms": time_ms(kern, n_sets),
+                           "device_ms": device_ms(kern, n_sets),
+                           "plain_ms": time_ms(plain, n_sets),
+                           "library_ms": None}
+            record("fused_pruned_ffn", case, dtype, got, plain(0), timings,
+                   nbytes, flops, False, "geometry-kernels",
+                   tensor_cores=M_ > ops.BPM_DECODE_MAX_ROWS)
+            del sets
+
+    # #8-#12: the FFN backward of the ragged train shape, rank 0's keep of
+    # 146 (timed) and rank 3's of 292, of 293 blocks of 8
+    nb, FF_G = 293, 293 * B8
+    for kb in (146, 292):
+        keep = prefix(kb)
+        order = ops.inverse_order(keep, nb)
+        C = kb * B8
+        dtype, es = torch.float32, 4
+
+        def make_geo(kb=kb, C=C):
+            x, dy = rnd((M_T, D_V), dtype), rnd((M_T, D_V), dtype)
+            w_up = nan_outside(rnd((D_V, FF_G), dtype, 0.02), kb, B8, 1)
+            w_down = nan_outside(rnd((FF_G, D_V), dtype, 0.02), kb, B8, 0)
+            return {"x": x, "dy": dy, "w_up": w_up, "w_down": w_down,
+                    "dyc": rnd((M_T, C), dtype)}
+        timed = kb == 146
+        case = f"ragged train keep {kb}/{nb} (w[.., {FF_G}])"
+        grad_case(
+            "pruned_matmul_dx", f"FFN dh {case}, compact", dtype, make_geo,
+            lambda s, out, keep=keep, kb=kb: ops.pruned_matmul_dx(
+                s["dy"], s["w_down"], keep, kb=kb, block=B8,
+                compact_out=True, out=out),
+            lambda s, keep=keep, kb=kb: ops.pruned_matmul_dx_plain(
+                s["dy"], s["w_down"], keep, kb, B8, True),
+            None, (M_T, C), (M_T * D_V + C * D_V + M_T * C) * es + kb * 4,
+            2 * M_T * D_V * C, False, timed=timed, phase="geometry-kernels")
+        grad_case(
+            "pruned_matmul_dw", f"FFN dW_down {case}, x_compact", dtype,
+            make_geo,
+            lambda s, out, order=order, kb=kb: ops.pruned_matmul_dw(
+                s["dyc"], s["dy"], order, kb=kb, block=B8, x_compact=True,
+                out=out),
+            lambda s, order=order, kb=kb: ops.pruned_matmul_dw_plain(
+                s["dyc"], s["dy"], order, kb, B8, True),
+            None, (FF_G, D_V), (M_T * C + M_T * D_V + FF_G * D_V) * es
+            + nb * 4, 2 * M_T * D_V * C, False, timed=timed,
+            phase="geometry-kernels")
+        grad_case(
+            "outpruned_matmul", f"FFN recompute {case}", dtype, make_geo,
+            lambda s, out, keep=keep: ops.outpruned_matmul(
+                s["x"], s["w_up"], keep, block=B8, out=out),
+            lambda s, keep=keep: ops.outpruned_matmul_plain(
+                s["x"], s["w_up"], keep, B8),
+            None, (M_T, C), (M_T * D_V + D_V * C + M_T * C) * es + kb * 4,
+            2 * M_T * D_V * C, False, timed=timed, phase="geometry-kernels")
+        grad_case(
+            "outpruned_matmul_dx", f"FFN dx {case}", dtype, make_geo,
+            lambda s, out, keep=keep: ops.outpruned_matmul_dx(
+                s["dyc"], s["w_up"], keep, block=B8, out=out),
+            lambda s, keep=keep: ops.outpruned_matmul_dx_plain(
+                s["dyc"], s["w_up"], keep, B8),
+            None, (M_T, D_V), (M_T * C + D_V * C + M_T * D_V) * es + kb * 4,
+            2 * M_T * D_V * C, False, timed=timed, phase="geometry-kernels")
+        grad_case(
+            "outpruned_matmul_dw", f"FFN dW_up {case}", dtype, make_geo,
+            lambda s, out, order=order, kb=kb: ops.outpruned_matmul_dw(
+                s["x"], s["dyc"], order, kb=kb, block=B8, out=out),
+            lambda s, order=order, kb=kb: ops.outpruned_matmul_dw_plain(
+                s["x"], s["dyc"], order, kb, B8),
+            None, (D_V, FF_G), (M_T * D_V + M_T * C + D_V * FF_G) * es
+            + nb * 4, 2 * M_T * D_V * C, False, timed=timed,
+            phase="geometry-kernels")
+    torch.cuda.synchronize()
+    if failures:
+        raise SystemExit(f"geometry kernel checks failed: {failures}")
+    say("geometry-kernels", f"all {len(checked) - n_checked} checks at the "
+        "ragged shapes within tolerance, finite with every unkept block "
+        "NaN, bit-identical between two runs")
+
     # ---------------------------------------------------------------- 7
     # one controlled step of a two-layer, full-width ViT-1B in f32 at
     # tp = 4: rank 0 resized (bucket 7) and the source of a 2-block shed;
@@ -1949,7 +2281,153 @@ def main():
     say("train", f"launches {train_launches}")
     if problems:
         raise SystemExit(f"train check failed: {problems}")
+    train_stats = (8 * n_steps / twalls.sum(),
+                   np.percentile(twalls, 50) * 1e3,
+                   torch.cuda.max_memory_allocated() / 2**30)
     del hist
+
+    # ------------------------------------------------- geometry training
+    # (1) one controlled step of a two-layer, full-width ViT-1B in f32 at
+    # tp 4 under the ragged geometry (146, 293, 293, 292) of the run
+    # below: rank 0 keeps 144 of its 146 real blocks and sheds 2, rank 1
+    # is resized to bucket 7 (37 of 293); loss and every gradient, the
+    # kernel path against the plain path. (2) run_training on full-width
+    # ViT-1B at tp 4 under SEMI with geometry "chi": the split is seeded
+    # from the step-0 chi of a round-robin chi 2 straggler (rank 0), which
+    # it absorbs; from step 2 the straggler is rank 1, whose residual the
+    # controller mitigates (so #2 runs). Every loss finite, #2, #3 and
+    # #8-#12 launched, and after the run every padding lane of the FFN
+    # weights and of both AdamW moments exactly 0
+    geo_train = geom_lib.geometry_from_chi([2, 1, 1, 1],
+                                           vit_full.d_ff // 8, 8)
+    if geo_train.sizes != (146, 293, 293, 292):
+        raise SystemExit(f"geometry-train: {geo_train.describe()}")
+    pvit2 = geom_lib.apply_geometry_cfg(vit2, geo_train)
+    st_g = PlanStatic(block_size=8, tp_size=4, mig_shed=(2,),
+                      geometry=geo_train.sizes)
+    st_g = dataclasses.replace(
+        st_g, scope_blocks=scopes_lib.scope_block_table(pvit2, st_g))
+    g_scopes = scopes_lib.control_scopes(pvit2, st_g)
+    prng = np.random.default_rng(8)
+    g_pri = scopes_lib.plan_pri_arrays(
+        g_scopes, {n: prng.permutation(nb * (1 if scopes_lib.SCOPE_LAYOUT[n]
+                                              == "col" else 4))
+                   for n, nb in g_scopes.items() if n != "ffn"}, 4,
+        geometry=geo_train.sizes, device=dev)
+    res = {}
+    for use_kernel in (True, False):
+        m2 = bridge.expand_ffn_modules(vit_lib.init(
+            torch.Generator(device=dev).manual_seed(2), vit2, torch.float32,
+            dev), geo_train)
+        ctx = ControlContext(static=st_g, bucket_by_rank=[0, 7, 0, 0],
+                             pri=g_pri, use_kernel=use_kernel, mig_src=[0])
+        ops.reset_launch_counts()
+        loss, _ = vit_lib.loss_fn(m2, pvit2, vbatch, ctx=ctx)
+        loss.backward()
+        torch.cuda.synchronize()
+        res[use_kernel] = (float(loss.detach()), {
+            n: p.grad.float() for n, p in m2.named_parameters()},
+            ops.launch_counts())
+        del m2
+    (lk, gk, ck), (lp, gp, _) = res[True], res[False]
+    worst, worst_name = 0.0, ""
+    for n, ref in gp.items():
+        rel = float((gk[n] - ref).abs().max()) / max(
+            float(ref.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, n
+    ok = (math.isfinite(lk) and abs(lk - lp) <= 1e-5 * abs(lp)
+          and worst <= F32_TOL and all(ck[k] > 0 for k in path_kernels))
+    say("geometry-train", f"vit-1b width, 2 layers, f32, tp 4, "
+        f"{geo_train.describe()}: buckets [0,7,0,0], source rank 0 "
+        f"shedding 2 blocks: loss kernel {lk:.7f} vs plain {lp:.7f}; "
+        f"{len(gp)} gradients, worst max|err|/max|ref| {worst:.2e} "
+        f"({worst_name}); launches {ck} {'ok' if ok else 'FAIL'}")
+    del res, gk, gp
+    if not ok:
+        raise SystemExit("geometry train reference check failed")
+
+    # (2) the run; the model and the optimizer state it builds are kept
+    # (by wrapping the two calls that make them) to read their padding
+    import repro_torch.launch.train as train_mod
+    kept = {}
+    expand_fn, adamw_init = bridge.expand_ffn_modules, adamw.init
+
+    def keep_model(model, geo):
+        kept["model"] = model
+        return expand_fn(model, geo)
+
+    def keep_opt(params):
+        kept["opt"] = adamw_init(params)
+        return kept["opt"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g_steps = 4
+    train_mod.bridge.expand_ffn_modules = keep_model
+    train_mod.adamw.init = keep_opt
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        ghist = run_training(
+            "vit-1b", model_cfg=vit_full, steps=g_steps, tp=4,
+            control_mode="semi", hetero_kind="round_robin", chi=2.0,
+            hetero_period=2, mig_blocks=2, geometry="chi", use_kernel=True,
+            batch=8, lr=lr_full, seed=0, quiet=True, device="cuda")
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+    finally:
+        train_mod.bridge.expand_ffn_modules = expand_fn
+        train_mod.adamw.init = adamw_init
+    g_launches = ops.launch_counts()
+    g_walls = np.asarray(ghist["wall_s"])
+    g_peak = torch.cuda.max_memory_allocated() / 2**30
+    problems = []
+    if ghist.get("geometry") != list(geo_train.sizes):
+        problems.append(f"history geometry {ghist.get('geometry')}")
+    if not all(math.isfinite(v) for v in ghist["loss"]):
+        problems.append(f"a loss is not finite: {ghist['loss']}")
+    for k in path_kernels:
+        if g_launches[k] <= 0:
+            problems.append(f"{k} never launched")
+    if any(max(b) > 0 or srcs for b, (srcs, _) in zip(
+            ghist["buckets"][:2], ghist["mig_shed"][:2])):
+        problems.append("the controller mitigated the absorbed straggler")
+    pad = torch.ones(geo_train.padded_blocks, dtype=torch.bool)
+    for r, L in enumerate(geo_train.sizes):
+        pad[r * geo_train.max_blocks:r * geo_train.max_blocks + L] = False
+    pad = pad.repeat_interleave(8).to(dev)
+    n_pad, nonzero = 0, []
+    named = dict(kept["model"].named_parameters())
+    for n, p in named.items():
+        if ".ffn." not in n:
+            continue
+        for what, t in (("param", p.detach()), ("mu", kept["opt"].mu[n]),
+                        ("nu", kept["opt"].nu[n])):
+            lanes = t[pad] if n.endswith("w_down") else t[:, pad]
+            n_pad += 1
+            if bool((lanes != 0).any()):
+                nonzero.append(f"{what} {n}")
+    if nonzero or n_pad != 3 * 2 * vit_full.num_layers:
+        problems.append(f"padding not zero: {nonzero[:4]} ({n_pad} checked)")
+    say("geometry-train", f"vit-1b full width (24 layers, f32), tp 4 SEMI, "
+        f"{geo_train.describe()} (chi-seeded), round_robin chi 2 period 2, "
+        f"mig_blocks 2, batch 8, lr {lr_full}: {g_steps} steps in "
+        f"{t_run:.2f} s ({g_walls.sum():.2f} s in steps): "
+        f"{8 * g_steps / g_walls.sum():.2f} images/s wall; step wall p50 "
+        f"{np.percentile(g_walls, 50) * 1e3:.1f} ms, max "
+        f"{g_walls.max() * 1e3:.1f} ms; peak memory {g_peak:.2f} GiB (equal "
+        f"split, phase 8: {train_stats[0]:.2f} images/s, p50 "
+        f"{train_stats[1]:.1f} ms, peak {train_stats[2]:.2f} GiB); buckets "
+        f"{ghist['buckets']}; mig_shed {ghist['mig_shed']}; signatures "
+        f"{sorted(set(ghist['signatures']))}")
+    say("geometry-train", f"loss {[round(v, 4) for v in ghist['loss']]}; "
+        f"padding lanes of {n_pad} FFN tensors (params, mu, nu) "
+        f"{'all exactly 0' if not nonzero else 'NOT zero'}; launches "
+        f"{({k: v for k, v in g_launches.items() if v})}")
+    del kept, named, ghist
+    free()
+    if problems:
+        raise SystemExit(f"geometry train check failed: {problems}")
 
     # ---------------------------------------------------------------- 9
     # where a train step's time goes: three steps of the same model under

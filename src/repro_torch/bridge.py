@@ -15,6 +15,12 @@ go the other way. Norm scales stay float32, as in the reference; every
 other weight takes ``dtype``. The AdamW moments mirror the parameter
 tree, so :func:`adamw_state_from_jax` / :func:`adamw_state_to_numpy`
 carry them the same way.
+
+Under a ragged shard geometry the FFN pairs change layout:
+:func:`expand_ffn_modules` moves a canonical model's FFN weights into the
+zero-padded ragged layout in place, on their device, with the block map
+of :func:`repro_torch.core.geometry.expand_ffn_params` (which does the
+same to numpy trees, and whose ``restrict_ffn_params`` undoes it).
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.core.geometry import ShardGeometry
 from repro_torch.models import lm as lm_lib
 from repro_torch.models import vit as vit_lib
 from repro_torch.optim import adamw as adamw_lib
@@ -227,3 +234,50 @@ def adamw_state_to_numpy(state: adamw_lib.AdamWState,
         return vit_params_to_numpy(m)
     return AdamWArrays(np.asarray(state.step, np.int32), tree(state.mu),
                        tree(state.nu))
+
+
+# ---------------------------------------------------------------------------
+# Ragged shard geometry: the padded FFN layout of a torch model
+# ---------------------------------------------------------------------------
+
+
+def _expand_ffn_tensor(w: torch.Tensor, geo: ShardGeometry,
+                       axis: int) -> torch.Tensor:
+    """``w``'s ``axis`` from the canonical width to the padded layout:
+    rank r's ``sizes[r]`` canonical blocks first in its slice, zero
+    blocks after (``core.geometry._expand_axis`` on a torch tensor)."""
+    b = geo.block
+    parts = []
+    for off, L in zip(geo.offsets, geo.sizes):
+        parts.append(w.narrow(axis, off * b, L * b))
+        if L < geo.max_blocks:
+            shape = list(w.shape)
+            shape[axis] = (geo.max_blocks - L) * b
+            parts.append(w.new_zeros(shape))
+    return torch.cat(parts, dim=axis)
+
+
+def expand_ffn_modules(model, geo: ShardGeometry):
+    """A canonical model's FFN pairs (its blocks' ``ffn`` of the
+    geometry's width) -> the padded ragged layout, in place (an equal
+    geometry changes nothing); returns ``model``."""
+    if geo.is_equal:
+        return model
+    found = 0
+    for blk in model.layers:
+        ffn = getattr(blk, "ffn", None)
+        if ffn is None or ffn.w_up.shape[-1] != geo.width \
+                or ffn.w_down.shape[0] != geo.width:
+            continue
+        found += 1
+        with torch.no_grad():
+            for name, axis in (("w_up", -1), ("w_gate", -1), ("w_down", 0)):
+                w = getattr(ffn, name)
+                if w is not None:
+                    setattr(ffn, name, torch.nn.Parameter(
+                        _expand_ffn_tensor(w.detach(), geo, axis),
+                        requires_grad=w.requires_grad))
+    if not found:
+        raise ValueError(
+            f"no FFN pair with width {geo.width} found in params")
+    return model

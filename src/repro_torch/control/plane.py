@@ -23,8 +23,13 @@ serve engine's) or ``"global"`` (whole-scope blocks — the trainer's
 historical convention, which its pinned trajectories depend on).
 ``clamp_sheds`` clamps projected shed counts to the real FFN shard
 (source keeps >= 1 block), as the serve engine asks; the trainer keeps
-the loud ``ValueError`` of its ``mig_blocks`` cap instead. The
-reference's ragged shard geometry comes with a later slice.
+the loud ``ValueError`` of its ``mig_blocks`` cap instead.
+``geometry`` (per-rank FFN block counts, :mod:`repro_torch.core.geometry`)
+puts the plane in the reference's geometry mode: the model config carries
+the padded ``d_ff``, the controller plans at real group scale relative to
+the static split (its workloads are the sizes), sheds are clamped against
+the smallest rank's real blocks, and the priority lists keep the
+canonical order; an all-equal geometry normalizes away.
 :meth:`state_arrays` / :meth:`state_meta` / :meth:`load_state` carry the
 controller's, the estimator's and the host RNG streams' state through a
 checkpoint, as the reference's do.
@@ -39,7 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -120,7 +125,8 @@ class ControlPlane:
                  trace_rank_offset: int = 0,
                  trace_out: Optional[str] = None,
                  trace_meta: Optional[Dict[str, Any]] = None,
-                 measure_noise: float = 0.0):
+                 measure_noise: float = 0.0,
+                 geometry: Optional[Sequence[int]] = None):
         self.wc = wc
         self.tp = tp
         self.device = torch.device(device)
@@ -132,19 +138,49 @@ class ControlPlane:
             raise ValueError(f"controller_blocks must be 'local' or "
                              f"'global', got {controller_blocks!r}")
 
+        # -- static ragged shard geometry (core/geometry.py) ---------------
+        # per-rank FFN block counts; an all-equal tuple IS the implicit
+        # split and normalizes away, keeping equal-geometry runs on the
+        # geometry-free path
+        geo = tuple(int(s) for s in geometry) if geometry else ()
+        if len(set(geo)) <= 1:
+            geo = ()
+        if geo:
+            if len(geo) != tp:
+                raise ValueError(
+                    f"geometry {geo} has {len(geo)} ranks but tp={tp}")
+            if self.sim_ranks != tp:
+                raise ValueError(
+                    "ragged geometry requires the controller to plan at "
+                    f"real mesh scale (sim_ranks={self.sim_ranks} != "
+                    f"tp={tp})")
+        self.geometry = geo
+
         # -- plan skeleton (real group scale) ------------------------------
         static = None
         if wc.enabled:
             static = PlanStatic(
                 buckets=wc.gamma_buckets, block_size=wc.block_size,
-                tp_size=tp, imputation=wc.imputation)
+                tp_size=tp, imputation=wc.imputation, geometry=geo)
             if not scopes_lib.control_scopes(model_cfg, static):
                 static = None               # arch exempt at this tp
         self.static = static
         self.scopes = (scopes_lib.control_scopes(model_cfg, static)
                        if static is not None else {})
+        if geo and static is not None:
+            nb_pad = self.scopes.get("ffn", 0)
+            if nb_pad != max(geo):
+                raise ValueError(
+                    f"geometry {geo}: padded local FFN block count "
+                    f"{nb_pad} != max(geometry) — the model config must "
+                    "carry the padded d_ff (core/geometry.py "
+                    "apply_geometry_cfg)")
+        elif geo and wc.enabled:
+            raise ValueError(
+                "ragged geometry needs the FFN controlled scope, but this "
+                "architecture is exempt at this TP degree")
         self.identity_pri = (scopes_lib.plan_pri_arrays(
-            self.scopes, {}, tp, device=self.device)
+            self.scopes, {}, tp, geometry=geo or None, device=self.device)
             if static is not None else {})
 
         # -- build cache ---------------------------------------------------
@@ -161,10 +197,21 @@ class ControlPlane:
         self.sim_nb = next(iter(sim_scopes.values()), 1)
         self.controller: Optional[SemiController] = None
         if wc.enabled and static is not None:
-            n_blocks = (self.sim_nb * self.sim_ranks
-                        if controller_blocks == "global" else self.sim_nb)
-            self.controller = SemiController(wc, self.sim_ranks, it_model,
-                                             n_blocks, seed=seed)
+            if geo:
+                # geometry mode: the controller reasons in per-rank local
+                # blocks (L_i = geometry[i]) whatever the configured
+                # convention — sheds must fit a source's REAL blocks
+                n_blocks = int(round(float(np.mean(geo))))
+                self.controller = SemiController(
+                    wc, self.sim_ranks, it_model, n_blocks, seed=seed,
+                    workloads=np.asarray(geo, np.float64))
+            else:
+                n_blocks = (self.sim_nb * self.sim_ranks
+                            if controller_blocks == "global"
+                            else self.sim_nb)
+                self.controller = SemiController(wc, self.sim_ranks,
+                                                 it_model, n_blocks,
+                                                 seed=seed)
 
         # -- χ schedule + telemetry ----------------------------------------
         self.schedule = make_schedule(
@@ -193,17 +240,36 @@ class ControlPlane:
             return self.schedule.chi(step)
         return np.ones((self.sim_ranks,))
 
+    def _geometry_base_frac(self) -> Optional[np.ndarray]:
+        """Per-rank STATIC workload fractions L_i/L_eq, or None when the
+        split is equal (keeps the geometry-free path untouched)."""
+        if not self.geometry:
+            return None
+        L = np.asarray(self.geometry, np.float64)
+        return L / max(float(L.mean()), 1e-12)
+
     def controller_times(self, chis: np.ndarray) -> np.ndarray:
         """Per-rank FULL-workload-equivalent times for the controller:
         the estimator's reconstruction in measured mode (neutral nominal
         times until its warmup gate opens), the χ-oracle through the
         iteration model otherwise — Eq.(1) measures the heterogeneity
-        degree, never the already-mitigated runtime."""
+        degree, never the already-mitigated runtime.
+
+        Under a ragged geometry the static split is part of the baseline:
+        times are evaluated at the geometry's own workload fractions
+        (T_i = M·(L_i/L_eq)·χ_i + C), so Eq.(1) sees only the RESIDUAL
+        imbalance the static shards did not absorb."""
+        base = self._geometry_base_frac()
         if self.estimator is not None:
-            return (self.estimator.full_times() if self.estimator.ready
-                    else self.estimator.nominal_times())
-        return self.it_model.times(np.asarray(chis, np.float64),
-                                   np.ones(self.sim_ranks))
+            if base is None:
+                return (self.estimator.full_times() if self.estimator.ready
+                        else self.estimator.nominal_times())
+            chi_hat = (self.estimator.chi_hat if self.estimator.ready
+                       else np.ones(self.sim_ranks))
+            return self.it_model.times(chi_hat, base)
+        return self.it_model.times(
+            np.asarray(chis, np.float64),
+            np.ones(self.sim_ranks) if base is None else base)
 
     def decide(self, times: np.ndarray):
         """Run the controller (Alg. 2) on per-rank times."""
@@ -217,16 +283,24 @@ class ControlPlane:
         ``(step_fn, plan_arrays, projected)``; ``projected`` is the plan
         that actually EXECUTES.
         """
+        # under a ragged geometry the clamp is against the SMALLEST rank's
+        # real blocks — any rank can be retargeted as a source
+        real_ffn_nb = (min(self.geometry) if self.geometry
+                       else self.scopes.get("ffn", 0)) \
+            if self.clamp_sheds else 0
         proj = project_plan(plan, sim_ranks=self.sim_ranks, tp=self.tp,
-                            real_nb=(self.scopes.get("ffn", 0)
-                                     if self.clamp_sheds else 0))
+                            real_nb=real_ffn_nb)
         st_iter = dataclasses.replace(self.static, mig_shed=proj.mig_sheds,
                                       mig_blocks=0)
         step_fn = self.cache.get(st_iter)
+        # learned priority statistics are collected over the PADDED weight
+        # layout and do not renumber onto the ragged split — geometry runs
+        # keep the canonical (identity) order instead
+        use_learned = bool(plan.dynamic.pri_lists) and not self.geometry
         pri = (scopes_lib.plan_pri_arrays(self.scopes,
                                           plan.dynamic.pri_lists, self.tp,
                                           device=self.device)
-               if plan.dynamic.pri_lists else self.identity_pri)
+               if use_learned else self.identity_pri)
         # one source rank per slot of the executed signature (-1 = idle)
         srcs = np.full((max(st_iter.num_sources, 1),), -1, np.int32)
         k = min(len(proj.mig_srcs), srcs.shape[0])

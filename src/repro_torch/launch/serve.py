@@ -47,9 +47,18 @@ iteration-time model (``peak_flops`` is a host-CPU calibration), exactly
 as in the reference; the host wall time of each step is reported beside
 them as ``wall_s``.
 
+* **Ragged static shard geometry** (``ControlConfig.geometry``,
+  :mod:`repro_torch.core.geometry`) — per-rank FFN block counts: the
+  step's config carries the padded ``d_ff``, parameters are initialized
+  (and checkpoints loaded) CANONICAL and expanded into the zero-padded
+  layout, the latency model prices the canonical config, and the
+  controller plans relative to the static split. MoE and SSM models stay
+  equal-split (``ValueError``).
+
 The engine serves dense GQA models (Yi-6B) and DeepSeek-V2 (MLA + MoE),
-over the slot cache or the paged pool. A ragged shard geometry raises
-``NotImplementedError`` naming the slice that brings it.
+over the slot cache or the paged pool. Per-layer plans
+(``selection="priority_diff"``) raise ``NotImplementedError`` naming the
+slice that brings them.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
         --control zero --hetero contention --chi 4 --sim-ranks 8 \\
@@ -61,6 +70,8 @@ over the slot cache or the paged pool. A ragged shard geometry raises
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-v2-lite-16b --page-size 8 --num-pages 12 \\
         --control zero --hetero contention --sim-ranks 8 --fused-attn
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
+        --tp 2 --control semi --hetero static --chi 3 --geometry 40,24
 """
 from __future__ import annotations
 
@@ -78,11 +89,13 @@ from repro_torch.checkpoint import store as ckpt_store
 from repro_torch.config import ModelConfig, ShapeConfig, get_config, smoke_variant
 from repro_torch.control import ControlConfig, ControlPlane
 from repro_torch.control import scopes as scopes_lib
+from repro_torch.core import geometry as geom_lib
 from repro_torch.core import hetero as hetero_lib
 from repro_torch.core import paging as paging_lib
-from repro_torch.layers.tp_linear import GEOMETRY_SLICE, ControlContext
+from repro_torch.layers.blocks import LM_TRAIN_SLICE
+from repro_torch.layers.tp_linear import ControlContext
 from repro_torch.models import lm as lm_lib
-from repro_torch.parallel import TPGroup
+from repro_torch.parallel import TPGroup, ragged_local_width
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -255,11 +268,13 @@ class ServeEngine:
                  model_cfg: Optional[ModelConfig] = None):
         self.control = control or ControlConfig()
         c = self.control
-        if c.geometry is not None:
+        if c.selection == "priority_diff":
             raise NotImplementedError(
-                f"a ragged shard geometry comes with {GEOMETRY_SLICE}")
+                f"per-layer plans (selection='priority_diff') come with "
+                f"{LM_TRAIN_SLICE}")
         self.cfg = (model_cfg if model_cfg is not None
                     else smoke_variant(get_config(arch)))
+        cfg_canonical = self.cfg
         if self.cfg.encdec is not None:
             raise ValueError(f"{arch}: the serve engine drives decoder-only "
                              "models (LM/SSM/hybrid/MoE)")
@@ -291,6 +306,19 @@ class ServeEngine:
                       if self.paging is not None else None)
         self.prefill_chunk = max(1, int(prefill_chunk))
         self.preemptions = 0
+
+        # ---- static ragged shard geometry (core/geometry.py): the step's
+        # config carries the padded d_ff; params are initialized
+        # canonically and expanded into the padded layout below
+        self.geometry = None
+        if c.geometry is not None:
+            # (raises ValueError for MoE and SSM models: equal-split)
+            geo = geom_lib.geometry_for_cfg(cfg_canonical, c.geometry,
+                                            c.block_size)
+            if not geo.is_equal:
+                self.geometry = geo
+                self.cfg = geom_lib.apply_geometry_cfg(cfg_canonical, geo)
+                ragged_local_width(geo.padded_width, TPGroup(tp))
 
         wc = c.to_workload()
         self._wc = wc
@@ -349,11 +377,14 @@ class ServeEngine:
 
         # ---- the control plane (build cache + controller + telemetry) ----
         self.sim_ranks = c.sim_ranks or tp
+        # the latency model prices the CANONICAL workload — padded lanes
+        # under a ragged geometry are inert zeros, not extra FLOPs
         self.it_model = hetero_lib.iteration_model(
-            self.cfg, ShapeConfig("serve_model", 1, num_slots, "decode"),
+            cfg_canonical, ShapeConfig("serve_model", 1, num_slots,
+                                       "decode"),
             max(self.sim_ranks, 1), peak_flops=c.peak_flops, mfu=c.mfu)
         self.overhead = (hetero_lib.decode_overhead_model(
-            self.cfg, num_slots, max_len, self.it_model,
+            cfg_canonical, num_slots, max_len, self.it_model,
             peak_flops=c.peak_flops,
             tile=(self.paging.page_size if self.paging is not None
                   else 128))
@@ -361,6 +392,8 @@ class ServeEngine:
         self.plane = ControlPlane(
             self.cfg, wc, tp=tp, builder=_build, device=self.device,
             it_model=self.it_model, sim_ranks=self.sim_ranks,
+            geometry=(self.geometry.sizes
+                      if self.geometry is not None else None),
             # the controller reasons in per-rank shard blocks (the paper's
             # L_i) so migration sheds are sized to FIT a source's local
             # shard; projected sheds are additionally clamped to the real
@@ -379,10 +412,12 @@ class ServeEngine:
         self.controller = self.plane.controller
 
         # ---- params + slot cache ----------------------------------------
+        # params (and checkpoints) are CANONICAL; a ragged geometry
+        # expands them into the zero-padded layout at load time
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         # a plain assignable attribute: callers may install other weights
-        self.params = lm_lib.init(gen, self.cfg, dtype, self.device)
+        self.params = lm_lib.init(gen, cfg_canonical, dtype, self.device)
         if ckpt_dir:
             # race-tolerant latest-committed load: a warm spare may be
             # promoted while a trainer is mid-save in the same directory
@@ -390,6 +425,8 @@ class ServeEngine:
                 ckpt_dir, bridge.params_template(self.params))
             if loaded is not None:
                 bridge.load_params(self.params, loaded)
+        if self.geometry is not None:
+            bridge.expand_ffn_modules(self.params, self.geometry)
         self.cache = lm_lib.init_cache(self.cfg, num_slots, max_len, dtype,
                                        self.device, paging=self.paging)
 
@@ -917,6 +954,9 @@ def main(argv=None):
                     help="record a replayable telemetry trace here (JSONL)")
     ap.add_argument("--prefill-chunk", type=int, default=1,
                     help="prompt positions fed per step during prefill")
+    ap.add_argument("--geometry", default=None,
+                    help="static ragged TP shard geometry: per-rank FFN "
+                         "block counts 'a,b,...' (DESIGN_SHARDING.md)")
     ap.add_argument("--page-size", type=int, default=0,
                     help="block-paged KV cache page size in tokens "
                          "(0 = fixed per-slot cache); with --fused-attn "
@@ -936,7 +976,8 @@ def main(argv=None):
         sim_ranks=args.sim_ranks, max_sources=args.max_sources,
         beta_policy=args.beta_policy, use_kernel=args.use_kernel,
         fused_attention=args.fused_attn, psum_chunks=args.psum_chunks,
-        times=args.times, trace_in=args.trace_in, trace_out=args.trace_out)
+        times=args.times, trace_in=args.trace_in, trace_out=args.trace_out,
+        geometry=geom_lib.parse_geometry_arg(args.geometry, args.tp))
     eng = ServeEngine(args.arch, num_slots=args.slots,
                       max_len=args.prompt_len + args.gen_len, tp=args.tp,
                       ckpt_dir=args.ckpt_dir, control=control, page_size=args.page_size,

@@ -20,13 +20,26 @@ params and AdamW moments + step (through :mod:`repro_torch.bridge`, in
 the JAX tree's keys), controller/estimator state and the data-pipeline
 position — so a run resumed with ``--resume`` is bit-identical to an
 uninterrupted one, and a checkpoint of either package resumes in the
-other. Not in this slice: the ragged ``geometry``, ``dp > 1`` and
+other.
+
+``geometry`` (``--geometry``) gives the FFN a ragged static shard
+geometry (:mod:`repro_torch.core.geometry`): ``"chi"`` sizes each rank's
+blocks from the hetero schedule's step-0 speed ratios, ``"a,b,..."``
+names them. The model then trains the padded config (rank r's slice: its
+real blocks first, zero padding after, inert forward, backward and under
+AdamW), initialized canonically and expanded; the iteration model prices
+the canonical config; checkpoints carry the padded state and its
+geometry, and a resume across geometries raises. Not in this slice:
+``dp > 1``, per-layer plans (``selection="priority_diff"``) and
 language-model training raise ``NotImplementedError`` naming the slice
 that brings them.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --steps 12 --tp 4 --control semi --hetero round_robin --chi 4 \\
         --mig-blocks 2 --ckpt-dir /tmp/ck --ckpt-every 4
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+        --steps 8 --tp 4 --control semi --hetero static --chi 2 \\
+        --mig-blocks 2 --geometry chi
 """
 from __future__ import annotations
 
@@ -43,21 +56,25 @@ from repro_torch.checkpoint import store as ckpt_store
 from repro_torch.config import (ModelConfig, ShapeConfig, TrainConfig,
                                 get_config, smoke_variant)
 from repro_torch.control import ControlConfig, ControlPlane
+from repro_torch.control.plane import make_schedule
+from repro_torch.core import geometry as geom_lib
 from repro_torch.core import hetero as hetero_lib
 from repro_torch.core.workload import WorkloadPlan
 from repro_torch.data.pipeline import (PatternImageStream, eval_accuracy,
                                        patchify, skip_batches)
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.serve import resolve_device
-from repro_torch.layers.tp_linear import GEOMETRY_SLICE
+from repro_torch.layers.blocks import LM_TRAIN_SLICE
 from repro_torch.models import vit as vit_lib
 from repro_torch.optim import adamw
+from repro_torch.parallel import TPGroup, ragged_local_width
 
 # batches eval_accuracy consumes per eval event (the reference's)
 EVAL_BATCHES = 4
 
 # FFN pruning granularity the trainer plans at (control_block_size adapts
-# it down when d_ff/tp is small)
+# it down when d_ff/tp is small); the ragged geometry quantizes to the
+# same grid so geometry block counts and plan block counts line up
 TRAIN_BLOCK = 8
 
 DP_SLICE = "the data-parallel slice (ROADMAP.md, queue A: dp > 1)"
@@ -76,6 +93,41 @@ def _scope_stats(model: vit_lib.ViT, scopes) -> Dict[str, np.ndarray]:
             out[name] = np.stack([get(b).detach().float().cpu().numpy()
                                   for b in model.layers]).mean(axis=0)
     return out
+
+
+def _resolve_geometry(spec: Optional[str], cfg, tp: int, *, hetero_kind: str,
+                      chi: float, period: int, seed: int,
+                      trace_in: Optional[str]):
+    """Parse ``--geometry`` into a ShardGeometry (None = classic split).
+
+    ``"chi"`` seeds the static split from the hetero schedule's step-0
+    speed ratios (core/geometry.py geometry_from_chi — the steady-state
+    χ of a static/persistent schedule); ``"a,b,..."`` gives explicit
+    per-rank block counts summing to d_ff/TRAIN_BLOCK. Equal splits
+    collapse to None so the geometry-free path stays bit-identical.
+    """
+    if spec is None or not str(spec).strip() \
+            or str(spec).strip().lower() == "none":
+        return None
+    reason = geom_lib.geometry_unsupported_reason(cfg)
+    if reason:
+        raise ValueError(f"--geometry unsupported for {cfg.name}: {reason}")
+    if cfg.d_ff % TRAIN_BLOCK:
+        raise ValueError(
+            f"--geometry needs d_ff divisible by {TRAIN_BLOCK} "
+            f"(got {cfg.d_ff})")
+    nb_total = cfg.d_ff // TRAIN_BLOCK
+    if str(spec).strip().lower() == "chi":
+        sched = make_schedule(hetero_kind, tp, chi=chi, period=period,
+                              seed=seed, trace_in=trace_in)
+        if sched is None:
+            raise ValueError("--geometry chi needs a hetero schedule "
+                             "(--hetero != none)")
+        geo = geom_lib.geometry_from_schedule(sched, nb_total, TRAIN_BLOCK)
+    else:
+        sizes = geom_lib.parse_geometry_arg(str(spec), tp)
+        geo = geom_lib.geometry_for_cfg(cfg, sizes, TRAIN_BLOCK)
+    return None if geo.is_equal else geo
 
 
 def run_training(arch: str, *, steps: int = 50, tp: int = 1, dp: int = 1,
@@ -115,14 +167,17 @@ def run_training(arch: str, *, steps: int = 50, tp: int = 1, dp: int = 1,
     init_params: initial parameters as a numpy tree in the JAX layout
                  (``jax.tree.map(np.asarray, params)`` of the reference's
                  ViT), carried over by :mod:`repro_torch.bridge`; else the
-                 weights are drawn from ``seed`` on ``device``.
+                 weights are drawn from ``seed`` on ``device``. Under a
+                 ragged ``geometry`` the tree is CANONICAL (the model's
+                 true ``d_ff``, as the reference initializes it): it is
+                 expanded into the padded layout here.
     """
-    if geometry is not None and str(geometry).strip().lower() \
-            not in ("", "none"):
-        raise NotImplementedError(
-            f"--geometry comes with {GEOMETRY_SLICE}")
     if dp != 1:
         raise NotImplementedError(f"dp={dp} comes with {DP_SLICE}")
+    if selection == "priority_diff":
+        raise NotImplementedError(
+            f"per-layer plans (selection='priority_diff') come with "
+            f"{LM_TRAIN_SLICE}")
     cfg = model_cfg if model_cfg is not None \
         else smoke_variant(get_config(arch))
     if not cfg.num_classes:
@@ -130,6 +185,16 @@ def run_training(arch: str, *, steps: int = 50, tp: int = 1, dp: int = 1,
             f"{cfg.name}: training a language model comes with a later "
             "slice of the port (ROADMAP.md, queue A)")
     dev = resolve_device(device)
+    cfg_canonical = cfg
+    geo = _resolve_geometry(geometry, cfg, tp, hetero_kind=hetero_kind,
+                            chi=chi, period=hetero_period, seed=seed,
+                            trace_in=trace_in)
+    if geo is not None:
+        # static uneven sharding, realized as a zero-padded equal split:
+        # the model config carries the padded d_ff; params are
+        # initialized canonically and expanded below
+        cfg = geom_lib.apply_geometry_cfg(cfg, geo)
+        ragged_local_width(geo.padded_width, TPGroup(tp))
     train_cfg = TrainConfig(learning_rate=lr, steps=steps)
     shape = ShapeConfig("trainer", seq, batch, "train")
 
@@ -144,6 +209,7 @@ def run_training(arch: str, *, steps: int = 50, tp: int = 1, dp: int = 1,
         seed=seed, times=times,
         trace_in=trace_in, trace_out=trace_out,
         measure_noise=measure_noise,
+        geometry=geo.sizes if geo is not None else None,
     ).to_workload(
         enabled=control_mode != "off" or force_gamma is not None,
         # --mig-blocks 0 disables migration entirely; otherwise it caps
@@ -156,7 +222,9 @@ def run_training(arch: str, *, steps: int = 50, tp: int = 1, dp: int = 1,
             use_kernel=control_cfg.use_kernel,
             psum_chunks=control_cfg.psum_chunks)
 
-    it_model = hetero_lib.iteration_model(cfg, shape, max(tp, 1),
+    # the latency model prices the CANONICAL workload — under a ragged
+    # geometry the padded lanes are inert zeros, not extra FLOPs
+    it_model = hetero_lib.iteration_model(cfg_canonical, shape, max(tp, 1),
                                           peak_flops=5e9, mfu=1.0)
     plane = ControlPlane(
         cfg, control_cfg, tp=tp, builder=_build_step, it_model=it_model,
@@ -165,15 +233,20 @@ def run_training(arch: str, *, steps: int = 50, tp: int = 1, dp: int = 1,
         trace_in=trace_in, trace_out=trace_out,
         trace_meta={"arch": arch, "hetero": hetero_kind,
                     "control": control_mode, "seed": seed},
-        measure_noise=measure_noise)
+        measure_noise=measure_noise,
+        geometry=geo.sizes if geo is not None else None)
     base_step = plane.base
     controller = plane.controller
 
+    # geometry runs initialize CANONICAL params (the same draws as the
+    # equal-split run) and expand them into the padded ragged layout
     if init_params is not None:
-        model = bridge.vit_params_from_jax(init_params, cfg, dev)
+        model = bridge.vit_params_from_jax(init_params, cfg_canonical, dev)
     else:
         gen = torch.Generator(device=dev).manual_seed(seed)
-        model = vit_lib.init(gen, cfg, torch.float32, dev)
+        model = vit_lib.init(gen, cfg_canonical, torch.float32, dev)
+    if geo is not None:
+        bridge.expand_ffn_modules(model, geo)
     opt = adamw.init(dict(model.named_parameters()))
 
     # -- resume: restore the FULL train state (params + optimizer
@@ -186,14 +259,18 @@ def run_training(arch: str, *, steps: int = 50, tp: int = 1, dp: int = 1,
         last = ckpt_store.latest_step(ckpt_dir)
         if last is not None:
             extra = ckpt_store.read_manifest(ckpt_dir, last).get("extra", {})
-            # the checkpointed param layout is geometry-dependent; this
-            # slice runs the equal split only (legacy checkpoints carry no
-            # key == equal split)
-            if extra.get("geometry"):
+            # the checkpointed param layout is geometry-dependent —
+            # resuming across geometries would silently misassign blocks
+            # to ranks, so mismatches fail loudly (legacy checkpoints
+            # carry no key == equal split)
+            ck_geo = extra.get("geometry")
+            cur_geo = list(geo.sizes) if geo is not None else None
+            if (ck_geo or cur_geo) and list(ck_geo or []) != \
+                    list(cur_geo or []):
                 raise ValueError(
-                    f"checkpoint shard geometry {extra['geometry']} does "
-                    "not match this run's geometry None; resuming across "
-                    "geometries is not supported")
+                    f"checkpoint shard geometry {ck_geo} does not "
+                    f"match this run's geometry {cur_geo}; resuming "
+                    "across geometries is not supported")
             full = extra.get("layout") == ckpt_store.TRAIN_STATE_LAYOUT
             bridge.load_vit_params(model, ckpt_store.restore(
                 ckpt_dir, last, bridge.vit_params_to_numpy(model),
@@ -221,7 +298,7 @@ def run_training(arch: str, *, steps: int = 50, tp: int = 1, dp: int = 1,
             "train_step": step_now,
             "data_batches": batches_drawn,
             "plane": plane.state_meta(),
-            "geometry": None,
+            "geometry": list(geo.sizes) if geo is not None else None,
             "arch": arch, "tp": tp, "dp": dp, "seed": seed})
 
     stream = iter(PatternImageStream(batch_size=batch, seed=seed,
@@ -328,6 +405,8 @@ def run_training(arch: str, *, steps: int = 50, tp: int = 1, dp: int = 1,
     history["plan_cache_hits"] = plane.cache.hit_count
     history["times_mode"] = (control_cfg.times if control_cfg.enabled
                              else "modeled")
+    if geo is not None:
+        history["geometry"] = list(geo.sizes)
     if plane.estimator is not None:
         history["chi_hat"] = [float(c) for c in plane.estimator.chi_hat]
         history["estimator_rejected"] = plane.estimator.rejected_total
@@ -355,6 +434,11 @@ def main():
     ap.add_argument("--measure-noise", type=float, default=0.0)
     ap.add_argument("--mig-blocks", type=int, default=0,
                     help="per-source migration shed cap; 0 disables migration")
+    ap.add_argument("--geometry", default=None,
+                    help="static ragged TP shard geometry: 'chi' seeds "
+                         "per-rank FFN block counts from the hetero "
+                         "schedule's speed ratios; 'a,b,...' gives them "
+                         "explicitly (DESIGN_SHARDING.md)")
     ap.add_argument("--max-sources", type=int, default=3)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
@@ -388,7 +472,7 @@ def main():
         psum_chunks=args.psum_chunks, times=args.times,
         trace_in=args.trace_in, trace_out=args.trace_out,
         measure_noise=args.measure_noise, ckpt_every=args.ckpt_every,
-        device=args.device)
+        geometry=args.geometry, device=args.device)
     print(f"final loss: {hist['final_loss']:.4f}  "
           f"mean modeled step: {hist['mean_modeled_step_s']*1e3:.2f} ms")
     if args.out:

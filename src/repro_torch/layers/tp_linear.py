@@ -21,8 +21,11 @@ so every branch choice is a Python pick and no layer syncs with the
 device. Each rank computes on views of the global weights; the row-split
 epilogue is the group's ``chunked_psum``.
 
-A ragged static shard geometry (the reference's ``PlanStatic.geometry``)
-raises: it comes with a later slice, with ``core/geometry.py``.
+A ragged static shard geometry (``PlanStatic.geometry``,
+:mod:`repro_torch.core.geometry`) applies to the FFN pair only: the
+weights carry the padded width, rank r's view holds its ``geometry[r]``
+real blocks first, and each rank's keep count is quantized against its
+own size class, so a small rank never gathers its padding.
 """
 from __future__ import annotations
 
@@ -36,9 +39,6 @@ from repro_torch.core.migration import (fused_migration_broadcast,
                                         fused_migration_delta)
 from repro_torch.core.workload import PlanStatic, keep_blocks_for_bucket
 from repro_torch.parallel import TPGroup
-
-GEOMETRY_SLICE = ("the ragged-geometry slice (ROADMAP.md, queue A: "
-                  "`--geometry` with core/geometry.py)")
 
 
 @dataclasses.dataclass
@@ -100,13 +100,10 @@ class ControlContext:
             raise ValueError(
                 f"plan for tp={st.tp_size} carries {len(self.buckets)} "
                 f"buckets and a group of {self.group.e}")
-        if len(set(st.geometry)) > 1:
-            raise NotImplementedError(
-                f"a ragged shard geometry ({st.geometry}) comes with "
-                f"{GEOMETRY_SLICE}")
         if st.per_layer:
             raise NotImplementedError(
-                "per-layer plans (priority_diff) are not ported")
+                "per-layer plans (priority_diff) come with the LM training "
+                "and prefill slice of the port (ROADMAP.md, queue A.5)")
 
 
 # ---------------------------------------------------------------------------
@@ -170,6 +167,12 @@ def controlled_ffn(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
     set additionally migrates its slot's ``m_s`` blocks, which the
     helpers compute from the broadcast slices and merge into the single
     all-reduce (reduce-merging, Sec. IV-A).
+
+    Under a ragged geometry (``st.geometry``, uneven) the weights carry
+    the padded width ``tp · max(geometry) · block``: rank r keeps
+    ``keep_blocks_for_bucket(γ, geometry[r])`` of its real blocks (one
+    keep table per size class), so only the largest ranks ever take the
+    dense shortcut.
     """
     if ctx is None or scope not in ctx.pri:
         return _dense_pair(x, w_up, w_down, w_gate, act_fn)
@@ -185,7 +188,28 @@ def controlled_ffn(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
         raise ValueError(
             f"mig_shed {sheds} must leave each source at least one of "
             f"its {nb} local blocks")
-    kcs = [keep_blocks_for_bucket(gm, nb) for gm in st.buckets]
+    # an all-equal geometry is the plain equal split: normalized away so
+    # it runs the geometry-free path exactly
+    geo = st.geometry if len(set(st.geometry)) > 1 else ()
+    if geo:
+        if len(geo) != g.e:
+            raise ValueError(
+                f"geometry {geo} has {len(geo)} ranks, tp_size={g.e}")
+        if max(geo) != nb:
+            raise ValueError(
+                f"geometry {geo}: max size {max(geo)} must equal the "
+                f"padded local block count {nb} "
+                f"(Hloc={w_up.shape[1] // g.e}, blk={blk})")
+        if sheds and max(sheds) >= min(geo):
+            raise ValueError(
+                f"mig_shed {sheds} must leave the smallest-geometry "
+                f"rank (L={min(geo)}) at least one real block")
+    # each rank's keep count per bucket, quantized against its size class
+    # (its real block count under a geometry, the local count otherwise)
+    size_of = list(geo) if geo else [nb] * g.e
+    kc_rows = {L: [keep_blocks_for_bucket(gm, L) for gm in st.buckets]
+               for L in set(size_of)}
+    kcs = [kc_rows[size_of[r]] for r in range(g.e)]
 
     def shards(r):
         return (g.cols(w_up, r), g.rows(w_down, r),
@@ -195,7 +219,7 @@ def controlled_ffn(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
     partials = []
     for r in range(g.e):
         wu, wd, wg = shards(r)
-        kc = kcs[ctx.buckets[r]]
+        kc = kcs[r][ctx.buckets[r]]
         if r in srcs:
             kc -= sheds[srcs.index(r)]
         kc = max(1, min(kc, nb))
@@ -214,7 +238,7 @@ def controlled_ffn(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
     if sheds:
         def exports(r, s):
             m_s = sheds[s]
-            kc_self = kcs[ctx.buckets[r]]
+            kc_self = kcs[r][ctx.buckets[r]]
             # start from the CLAMPED keep count max(kc − m_s, 1): the
             # local branch never keeps fewer than 1 block, so the
             # migrated window must start after it to stay disjoint

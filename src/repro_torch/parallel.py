@@ -27,6 +27,11 @@ The collectives are explicit sums behind a small interface, so that
   exact zeros — and autograd routes the gradient back to the source's
   shard only, as JAX's transposed psum does.
 
+A ragged static shard geometry (:mod:`repro_torch.core.geometry`) keeps
+this equal split: the FFN's hidden width is padded so that it divides
+evenly, each rank's view holding its real blocks first and zero blocks
+after (:func:`ragged_local_width` checks the arithmetic).
+
 While the analyzer records a run it installs a hook
 (:func:`set_collective_hook`) that receives each collective: its kind,
 operand count and operand shapes (rule R3).
@@ -140,3 +145,18 @@ class TPGroup:
         _report("bcast_grouped",
                 [t for bufs in out for t in bufs if t is not None])
         return out
+
+
+def ragged_local_width(padded_width: int, group: TPGroup,
+                       axis: str = "model") -> int:
+    """Per-rank lane count of the padded ragged-FFN layout (the
+    reference's ``sharding.ragged_local_width``, over the group in place
+    of the mesh's ``axis``): the padded width must split evenly over the
+    group's ranks."""
+    n = group.e
+    if padded_width % n:
+        raise ValueError(
+            f"padded FFN width {padded_width} does not equal-split over "
+            f"the {n}-way {axis!r} mesh axis — the geometry's padded "
+            "layout is malformed")
+    return padded_width // n

@@ -116,8 +116,8 @@ def test_engine_api_on_cpu():
     dict(model_cfg=smoke_variant(get_config("falcon-mamba-7b"))),
     dict(model_cfg=smoke_variant(get_config("recurrentgemma-2b"))),
     dict(model_cfg=smoke_variant(get_config("qwen2-vl-7b"))),
-    dict(tp=4, control=ControlConfig(mode="semi", geometry=(3, 1, 2, 2))),
-    dict(control=ControlConfig(geometry=(2, 1))),
+    dict(tp=4, control=ControlConfig(mode="semi", selection="priority_diff")),
+    dict(control=ControlConfig(selection="priority_diff")),
 ])
 def test_unsupported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="slice"):

@@ -346,7 +346,7 @@ def test_imputation_matches_jax(mode):
 
 
 def test_trainer_refuses_what_later_slices_bring():
-    for kw in ({"geometry": "chi"}, {"dp": 2}):
+    for kw in ({"selection": "priority_diff"}, {"dp": 2}):
         with pytest.raises(NotImplementedError, match="slice"):
             run_training("vit-1b", steps=1, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="language model"):
