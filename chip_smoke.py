@@ -93,6 +93,28 @@ Phases, each printing one line of its own; any failure exits non-zero:
               straggler: a step must migrate, every shed below 25; wall
               tokens/s, step p50 / p95 and peak memory of both beside the
               equal split's.
+   cluster  — the port's multi-replica cluster (``repro_torch.cluster``):
+              three full-width Yi-6B replicas and a warm spare (bf16, 8
+              slots, semi-serve's control replaying
+              ``examples/traces/replica_skew.jsonl`` over 4 simulated
+              ranks each; r1 carries two persistent chi 4 ranks) serve the
+              first 8 of the 16 requests under round_robin, then on fresh
+              replicas under
+              chi_aware; r0 drains at cluster step 12 (the spare is
+              promoted), r2 fails at 24 and restarts at 30. Every request
+              completes exactly once, the drained and failed replicas'
+              requests are reassigned, the fail returns at least r2's
+              parameter bytes to the card and the restart takes about as
+              much again, #1 launches (#2 and #3 too where a step
+              resized), a request's tokens agree between the two runs
+              unless a resized step touched it (at most a quarter of the
+              requests may be so touched), chi_aware routes fewer
+              requests to r1, and a finished run's replicas leave the
+              card; host wall tokens/s, cluster-step wall p50 / p95, peak
+              memory, launches, and the modeled latencies (labelled so).
+              Then the same cluster at two layers in f32 (chi_aware, 16
+              requests of 16-64 prompt tokens and 16 new ones): every
+              completion equal to FixedBatchEngine's tokens.
    mla-serve — the first 8 of the requests and the same control at full
               DeepSeek-V2-Lite width (27 layers, MLA + MoE, bf16), over
               the slot cache
@@ -158,9 +180,9 @@ mla-serve runs, #7 the analysis phase, the backward family phase 8) and,
 last, the JSON line
 ``{"ok": true, "device": {...}}``. The engines' latencies are MODELED (a
 host-CPU calibration) and are not printed as card times; the serve and
-train phases print host wall-clock numbers only.
+train phases print host wall-clock numbers only, and the cluster phase
+prints its modeled latencies beside its host wall, labelled modeled.
 """
-import gc
 import json
 import math
 import re
@@ -224,6 +246,279 @@ def bound_ms(nbytes, flops, dtype_name):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
+def cluster_phase(full, control_semi, free):
+    """The ``cluster`` phase: the port's multi-replica cluster
+    (``repro_torch.cluster``) over full-width Yi-6B engines on one card.
+
+    Replicas ``r0``-``r2`` and a warm ``spare``, each an 8-slot
+    ``ServeEngine`` with semi-serve's control (``control_semi``) replaying
+    ``examples/traces/replica_skew.jsonl`` over 4 simulated ranks (replica
+    i lanes 4i..4i+3, the spare lane 0; ``r1`` carries two persistent
+    chi 4 ranks). A hook drains ``r0`` at cluster step 12 (promoting the
+    spare), fails ``r2`` at 24 and restarts it at 30. (a) bf16, the 16
+    requests of the serve phases, round_robin then chi_aware, each on
+    fresh replicas; (b) two layers in f32, 16 short requests, chi_aware,
+    every completion against ``FixedBatchEngine``. Raises SystemExit on a
+    failed check; ``free()`` collects and empties the allocator."""
+    import collections
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.cluster import ReplicaHandle, ReplicaManager, Router
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import (FixedBatchEngine, Request,
+                                          ServeEngine)
+    from repro_torch.models import lm as lm_lib
+
+    skew = str(ROOT / "examples" / "traces" / "replica_skew.jsonl")
+    control = dataclasses.replace(control_semi, hetero_kind="trace",
+                                  sim_ranks=4, trace_in=skew)
+    lanes = 4
+
+    def param_bytes(engine):
+        return sum(p.numel() * p.element_size()
+                   for p in engine.params.parameters())
+
+    def requests(vocab, n, lo, hi, gen):
+        # the serve phases' generator: rng 0, one arrival every 3 steps
+        rq = np.random.default_rng(0)
+        return [Request(uid=i, prompt=rq.integers(
+                    0, vocab, (int(rq.integers(lo, hi + 1)),))
+                    .astype(np.int32), max_new_tokens=gen,
+                    arrival_step=3 * i) for i in range(n)]
+
+    def run(label, policy, cfg, dtype, reqs):
+        """One cluster run on fresh replicas; returns what the checks and
+        the token comparison need (no reference to an engine)."""
+        free()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def factory(lane):
+            ctl = dataclasses.replace(control, trace_rank_offset=lanes * lane)
+            return lambda: ServeEngine(
+                "yi-6b", model_cfg=cfg, num_slots=8, max_len=1024,
+                prefill_chunk=16, param_dtype=dtype, control=ctl,
+                device="cuda", seed=0)
+        t0 = time.perf_counter()
+        handles = [ReplicaHandle(f"r{i}", factory(i)) for i in range(3)]
+        handles.append(ReplicaHandle("spare", factory(0), spare=True))
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        build_peak = torch.cuda.max_memory_allocated()
+        mgr = ReplicaManager(handles, Router(policy))
+        del handles
+        mem = {}
+        # each cluster step timed on the host, from the end of one hook
+        # call to the start of the next (the hook's own drain / fail /
+        # restart stay outside); the requests a replica held while it ran
+        # a resized step are marked. At tp 1 the one real rank executes
+        # the largest bucket of the simulated ranks (control/projection.py,
+        # the folded branch), so a step report's ``max_bucket`` is the
+        # bucket that ran
+        walls, touched, resized = [], set(), collections.Counter()
+        seen = {}                             # replica -> history entries read
+        t_last = [None]
+
+        def scan(m):
+            for h in m.replicas:
+                if h.engine is None:
+                    continue
+                for rep in h.engine.history[seen.get(h.name, 0):]:
+                    if rep.get("max_bucket", 0) > 0:
+                        resized[h.name] += 1
+                        touched.update(rep["completed"])
+                        touched.update(sl.req.uid for sl in h.engine.slots
+                                       if sl is not None)
+                seen[h.name] = len(h.engine.history)
+
+        def lifecycle(m):
+            if t_last[0] is not None:
+                walls.append(time.perf_counter() - t_last[0])
+            scan(m)
+            if m.cluster_step == 12:
+                m.drain("r0")                 # promotes the spare
+            elif m.cluster_step == 24:
+                mem["r2_bytes"] = param_bytes(m.by_name["r2"].engine)
+                mem["before_fail"] = torch.cuda.memory_allocated()
+                m.fail("r2", promote_spare=False)
+                mem["after_fail"] = torch.cuda.memory_allocated()
+            elif m.cluster_step == 30:
+                mem["before_restart"] = torch.cuda.memory_allocated()
+                m.restart("r2")
+                mem["after_restart"] = torch.cuda.memory_allocated()
+                mem["r2_kv"] = m.by_name["r2"].engine.kv_cache_bytes()
+                seen["r2"] = 0                # a new engine, a new history
+            t_last[0] = time.perf_counter()
+
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        comps = mgr.run(reqs, on_step=lifecycle)
+        walls.append(time.perf_counter() - t_last[0])
+        scan(mgr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        run_peak = torch.cuda.max_memory_allocated()
+        stats = mgr.stats()
+        routed = collections.Counter(mgr.routed_to.values())
+        events = [e for e in mgr.events if e["kind"] != "route"]
+        mgr.close()
+        gen = reqs[0].max_new_tokens
+        vocab = cfg.vocab_size
+        probs = []
+        if [c.uid for c in comps] != [r.uid for r in reqs]:
+            probs.append("not every request completed exactly once")
+        if stats["duplicates"] != 0:
+            probs.append(f"{stats['duplicates']} duplicate completions")
+        moved = sum(e.get("evicted", 0) + e.get("reassigned", 0)
+                    for e in events if e["kind"] in ("drain", "fail"))
+        if stats["reassigned"] != moved or moved <= 0:
+            probs.append(f"reassigned {stats['reassigned']}, drain and fail "
+                         f"events moved {moved}")
+        if not {"drain", "promote", "fail", "restart"} <= {
+                e["kind"] for e in events}:
+            probs.append(f"lifecycle events missing: {events}")
+        if any(len(c.tokens) != gen for c in comps):
+            probs.append(f"a request stopped short of {gen} tokens")
+        if any(((c.tokens < 0) | (c.tokens >= vocab)).any() for c in comps):
+            probs.append("a token outside the vocabulary")
+        if len({tuple(c.tokens.tolist()) for c in comps}) < 2:
+            probs.append("every request generated the same tokens")
+        freed = mem["before_fail"] - mem["after_fail"]
+        grown = mem["after_restart"] - mem["before_restart"]
+        if freed < mem["r2_bytes"]:
+            probs.append(f"the fail returned {freed} bytes, under r2's "
+                         f"{mem['r2_bytes']} parameter bytes")
+        if not mem["r2_bytes"] <= grown <= (1.02 * mem["r2_bytes"]
+                                            + mem["r2_kv"] + 2**26):
+            probs.append(f"the restart took {grown} bytes for "
+                         f"{mem['r2_bytes']} parameter and {mem['r2_kv']} "
+                         "cache bytes")
+        if counts["fused_decode_attention"] <= 0:
+            probs.append("fused_decode_attention never launched")
+        if resized and min(counts["block_pruned_matmul"],
+                           counts["fused_pruned_ffn"]) <= 0:
+            probs.append(f"resized steps {dict(resized)} without the "
+                         f"pruned kernels: {counts}")
+        n_tok = sum(len(c.tokens) for c in comps)
+        w = np.asarray(walls)
+        say("cluster", f"{label} {policy}: {len(comps)} requests, {n_tok} "
+            f"tokens, {len(walls)} cluster steps in {wall:.2f} s host wall "
+            f"(4 replicas built in {t_build:.1f} s): {n_tok / wall:.1f} "
+            f"tokens/s wall; cluster step wall p50 "
+            f"{np.percentile(w, 50) * 1e3:.2f} ms, p95 "
+            f"{np.percentile(w, 95) * 1e3:.2f} ms")
+        say("cluster", f"{label} {policy}: routed {dict(sorted(routed.items()))}"
+            f"; events {events}; reassigned {stats['reassigned']}, "
+            f"duplicates {stats['duplicates']}; modeled (iteration model, "
+            f"not card time): p95 {stats['p95_ms']:.3f} ms, ttft mean "
+            f"{stats['ttft_mean_ms']:.3f} ms, makespan "
+            f"{stats['makespan_s']:.4f} s")
+        say("cluster", f"{label} {policy}: peak memory after the build "
+            f"{build_peak / 2**30:.2f} GiB, in the run "
+            f"{run_peak / 2**30:.2f} GiB; r2's parameters "
+            f"{mem['r2_bytes'] / 2**30:.3f} GiB, the fail returned "
+            f"{freed / 2**30:.3f} GiB, the restart took {grown / 2**30:.3f}"
+            f" GiB; resized steps {dict(resized)}; launches "
+            f"{({k: v for k, v in counts.items() if v})} "
+            f"{'ok' if not probs else 'FAIL'}")
+        if probs:
+            raise SystemExit(f"cluster check ({label} {policy}) failed: "
+                             f"{probs}")
+        return {"tokens": {c.uid: c.tokens for c in comps},
+                "comps": comps, "touched": touched, "routed": routed,
+                "base_mem": base_mem}
+
+    def released(res):
+        # the run's replicas (each engine a reference cycle through its
+        # control plane) must leave the card
+        free()
+        left = torch.cuda.memory_allocated() - res["base_mem"]
+        say("cluster", f"after the run's release: {left / 2**20:.1f} MiB "
+            "above the memory before its build")
+        if left > 2**30:
+            raise SystemExit(f"cluster: {left} bytes of a finished run's "
+                             "replicas stayed on the card")
+
+    # (a) full width, bf16: the cluster at its real size, both policies,
+    # over the first 8 of the serve phases' 16 requests (with all 16 the
+    # prefill chunks took 120 s a run and the script 1111 s of its 1200)
+    reqs = requests(full.vocab_size, 16, 64, 256, 64)[:8]
+    res = {}
+    for policy in ("round_robin", "chi_aware"):
+        res[policy] = run("(a) yi-6b bf16", policy, full, "bfloat16", reqs)
+        released(res[policy])
+    rr, ca = res["round_robin"], res["chi_aware"]
+    touched = rr["touched"] | ca["touched"]
+    differ = [u for u in rr["tokens"]
+              if not np.array_equal(rr["tokens"][u], ca["tokens"][u])]
+    bad = [u for u in differ if u not in touched]
+    say("cluster", f"(a) tokens of the two runs: {len(differ)} of "
+        f"{len(reqs)} requests differ; {len(touched)} requests were held by "
+        f"a replica running a resized step ({sorted(touched)}); differing "
+        f"without one: {bad}; r1 routed round_robin "
+        f"{rr['routed'].get('r1', 0)}, chi_aware {ca['routed'].get('r1', 0)}")
+    if bad:
+        raise SystemExit(f"cluster: requests {bad} differ between the "
+                         "policies though no resized step touched them")
+    if len(touched) > len(reqs) // 4:
+        # the agreement check would leave most requests unchecked
+        raise SystemExit(f"cluster: resized steps touched {len(touched)} of "
+                         f"{len(reqs)} requests, more than a quarter")
+    if not ca["routed"].get("r1", 0) < rr["routed"].get("r1", 0):
+        raise SystemExit("cluster: chi_aware did not route fewer requests "
+                         "to the contended r1 than round_robin")
+    del res, rr, ca
+
+    # (b) two layers, f32: every completion token-exact against the
+    # fixed-batch oracle (one request at a time, default attention)
+    cfg2 = dataclasses.replace(full, num_layers=2, name="yi-6b-2layer")
+    reqs2 = requests(cfg2.vocab_size, 16, 16, 64, 16)
+    res2 = run("(b) yi-6b 2 layers f32", "chi_aware", cfg2, "float32",
+               reqs2)
+    oracle = FixedBatchEngine("yi-6b", batch=1, max_len=128, model_cfg=cfg2,
+                              param_dtype="float32", device="cuda", seed=0)
+    dev = oracle.device
+
+    def top2_gap(prompt, tokens, k):
+        # the oracle's top-2 logit gap at generated position k, fed the
+        # prompt and the k tokens both sides agree on
+        seq = np.concatenate([prompt, tokens[:k]]).astype(np.int32)
+        cache = lm_lib.init_cache(cfg2, 1, oracle.max_len, torch.float32,
+                                  dev)
+        with torch.inference_mode():
+            for t, tok in enumerate(seq):
+                logits, cache = lm_lib.decode_step(
+                    oracle.params, cfg2, cache,
+                    torch.tensor([tok], dtype=torch.int32, device=dev),
+                    torch.tensor([t], dtype=torch.int32, device=dev))
+        top = torch.topk(logits[0].float(), 2).values
+        return float(top[0] - top[1])
+
+    t0 = time.perf_counter()
+    mismatch = []
+    for c in res2["comps"]:
+        P = len(c.prompt)
+        ref = oracle.generate(c.prompt[None], len(c.tokens))[0, P:]
+        if not np.array_equal(ref, c.tokens):
+            k = int(np.nonzero(ref != c.tokens)[0][0])
+            mismatch.append((c.uid, k, int(c.tokens[k]), int(ref[k]),
+                             top2_gap(c.prompt, c.tokens, k)))
+    say("cluster", f"(b) {len(res2['comps'])} completions against "
+        f"FixedBatchEngine (f32, default attention) in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        f"{len(res2['comps']) - len(mismatch)} token-exact; mismatches "
+        f"(uid, position, cluster token, oracle token, oracle top-2 logit "
+        f"gap): {mismatch} {'ok' if not mismatch else 'FAIL'}")
+    del oracle
+    released(res2)
+    if mismatch:
+        raise SystemExit(f"cluster: completions differ from the "
+                         f"FixedBatchEngine oracle: {mismatch}")
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -240,7 +535,8 @@ def main():
     from repro_torch.core.workload import PlanStatic, keep_blocks_for_bucket
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import Request, ServeEngine
+    from repro_torch.launch.serve import (Request, ServeEngine,
+                                          release_device_memory)
     from repro_torch.layers.tp_linear import ControlContext
     from repro_torch.models import lm as lm_lib
 
@@ -1458,8 +1754,7 @@ def main():
     def free():
         # an engine is a reference cycle (its control plane keeps a
         # closure over it): collect it before the next model is built
-        gc.collect()
-        torch.cuda.empty_cache()
+        release_device_memory(dev)
     del eng
     free()
 
@@ -1693,6 +1988,11 @@ def main():
             f"with the tp-1 dense run: "
             f"{agreement(geo_tokens[run_tag], dense_tokens):.3f} (bf16; "
             "information only)")
+
+    # ------------------------------------------------------------ cluster
+    # the multi-replica cluster over four full-width Yi-6B replicas (see
+    # cluster_phase); nothing of it is held by the time it returns
+    cluster_phase(full, control_semi, free)
 
     # ------------------------------------------------------ MLA + MoE
     # full-width DeepSeek-V2-Lite (27 layers: a dense first layer, 26 MoE

@@ -3,7 +3,8 @@
 
 Every step the port's CLIs drive registers a *case provider* here:
 ``launch/steps.py`` (the train step and the controlled serve-decode
-step) and ``launch/serve.py`` (the serve engine's base step);
+step), ``launch/serve.py`` (the serve engine's base step) and
+``cluster/replica.py`` (the same step through a replica handle);
 ``analysis/micro.py`` adds the collective and kernel probes. The engine
 calls each provider with a :class:`CaseEnv` and lints the returned
 :class:`TraceCase` list against R1–R5, so a driver that forgets to
@@ -25,14 +26,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 #: step names the port's drivers must register
 #: (tests/test_torch_analysis.py asserts completeness against this)
 REQUIRED_STEPS = ("train_step", "serve_decode_step", "serve_engine_step",
-                  "micro_collective", "micro_kernel")
+                  "cluster_tick", "micro_collective", "micro_kernel")
 
 #: the reference's registered steps the port does not have yet, with the
 #: ROADMAP.md item that brings each
 NOT_YET_PORTED = {
     "prefill_step": "LM prefill, with LM training (ROADMAP.md, queue A.5)",
-    "cluster_tick": "cluster/ over the torch ServeEngine (ROADMAP.md, "
-                    "queue A.4)",
 }
 
 
@@ -121,5 +120,6 @@ def load_providers() -> List[str]:
     add the import here (the completeness test will remind you)."""
     import repro_torch.launch.steps       # noqa: F401  train / serve-decode
     import repro_torch.launch.serve       # noqa: F401  serve_engine_step
+    import repro_torch.cluster.replica    # noqa: F401  cluster_tick
     import repro_torch.analysis.micro     # noqa: F401  collective / kernel
     return names()

@@ -41,6 +41,10 @@ What it does, as the reference:
 * **Warm load** — ``ckpt_dir`` loads the newest committed checkpoint's
   parameters (either package's; a full train state or params only),
   cast to ``param_dtype``.
+* **Fixed-batch baseline** — :class:`FixedBatchEngine` decodes fixed
+  batches one token a step from the same seeded weights
+  (:func:`init_params`): the oracle that slot recycling and cluster
+  routing (``repro_torch.cluster``) are held against.
 
 The engine's clock and per-token latencies are MODELED from the
 iteration-time model (``peak_flops`` is a host-CPU calibration), exactly
@@ -78,6 +82,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import gc
 import time
 from typing import Dict, List, Optional
 
@@ -109,6 +114,35 @@ def resolve_device(device) -> torch.device:
             "no CUDA device is available; repro_torch runs on the GPU "
             "unless the caller passes device='cpu'")
     return dev
+
+
+def init_params(cfg: ModelConfig, seed: int, dtype: torch.dtype, device,
+                ckpt_dir: Optional[str] = None) -> lm_lib.LM:
+    """The engines' weights: random from one generator on ``device`` seeded
+    with ``seed``, initialized directly in ``dtype``; with ``ckpt_dir``, the
+    newest committed checkpoint's parameters (either package's) replace
+    them. Engines of one seed, config and dtype hold the same bits."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = lm_lib.init(gen, cfg, dtype, device)
+    if ckpt_dir:
+        # race-tolerant latest-committed load: a warm spare may be
+        # promoted while a trainer is mid-save in the same directory
+        _, loaded = ckpt_store.load_latest_params(
+            ckpt_dir, bridge.params_template(params))
+        if loaded is not None:
+            bridge.load_params(params, loaded)
+    return params
+
+
+def release_device_memory(device) -> None:
+    """Collect what is no longer reachable and, on a CUDA device, hand the
+    caching allocator's free blocks back to the card. An engine is a
+    reference cycle (its control plane keeps a closure over it), so its
+    parameters and cache leave the device only once collected."""
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -414,17 +448,9 @@ class ServeEngine:
         # ---- params + slot cache ----------------------------------------
         # params (and checkpoints) are CANONICAL; a ragged geometry
         # expands them into the zero-padded layout at load time
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
         # a plain assignable attribute: callers may install other weights
-        self.params = lm_lib.init(gen, cfg_canonical, dtype, self.device)
-        if ckpt_dir:
-            # race-tolerant latest-committed load: a warm spare may be
-            # promoted while a trainer is mid-save in the same directory
-            _, loaded = ckpt_store.load_latest_params(
-                ckpt_dir, bridge.params_template(self.params))
-            if loaded is not None:
-                bridge.load_params(self.params, loaded)
+        self.params = init_params(cfg_canonical, seed, dtype, self.device,
+                                  ckpt_dir)
         if self.geometry is not None:
             bridge.expand_ffn_modules(self.params, self.geometry)
         self.cache = lm_lib.init_cache(self.cfg, num_slots, max_len, dtype,
@@ -876,6 +902,74 @@ class ServeEngine:
             signature=first.canonical().signature_str(),
             retrace=tuple((f"{label}-spelling", step_fn(st), args)
                           for label, st in rest))]
+
+
+# ---------------------------------------------------------------------------
+# Fixed-batch engine (the reference's lockstep loop, kept as the equivalence
+# baseline: slot recycling and cluster routing are held against it)
+# ---------------------------------------------------------------------------
+
+
+class FixedBatchEngine:
+    """Holds params and serves fixed batches one token a step over a slot
+    cache, with the model's default attention (not the fused switch).
+
+    Beside the reference's arguments it takes the port's ``device``
+    (default ``"cuda"``), ``model_cfg`` (a full-width config in place of
+    the smoke variant) and ``param_dtype``; its weights come from
+    :func:`init_params`, as :class:`ServeEngine`'s do."""
+
+    def __init__(self, arch: str, batch: int, max_len: int,
+                 ckpt_dir: Optional[str] = None, seed: int = 0, *,
+                 device="cuda", model_cfg: Optional[ModelConfig] = None,
+                 param_dtype: str = "float32"):
+        self.cfg = (model_cfg if model_cfg is not None
+                    else smoke_variant(get_config(arch)))
+        if param_dtype not in _DTYPES:
+            raise ValueError(f"param_dtype must be one of {sorted(_DTYPES)}")
+        self.device = resolve_device(device)
+        self.batch = batch
+        self.max_len = max_len
+        self.dtype = _DTYPES[param_dtype]
+        self.params = init_params(self.cfg, seed, self.dtype, self.device,
+                                  ckpt_dir)
+
+    def generate(self, prompts: np.ndarray, gen_len: int,
+                 eos_id: Optional[int] = None) -> np.ndarray:
+        """prompts [B, P] int32 -> [B, P+gen_len] greedy continuations
+        (after an EOS a row repeats it; all rows done ends the loop)."""
+        B, P = prompts.shape
+        if B != self.batch or P + gen_len > self.max_len:
+            raise ValueError(f"prompts {prompts.shape} + {gen_len} tokens "
+                             f"do not fit batch {self.batch}, max_len "
+                             f"{self.max_len}")
+        dev = self.device
+        cache = lm_lib.init_cache(self.cfg, B, self.max_len, self.dtype, dev)
+        out = [np.asarray(prompts[:, 0], np.int32)]
+        done = np.zeros((B,), bool)
+        with torch.inference_mode():
+            for t in range(P + gen_len - 1):
+                logits, cache = lm_lib.decode_step(
+                    self.params, self.cfg, cache, _upload(out[-1], dev),
+                    torch.full((B,), t, dtype=torch.int32, device=dev))
+                if t + 1 < P:
+                    nxt = np.asarray(prompts[:, t + 1], np.int32)
+                else:
+                    nxt = torch.argmax(logits, dim=-1).to(
+                        torch.int32).cpu().numpy()
+                    if eos_id is not None:
+                        done |= nxt == eos_id
+                        nxt = np.where(done, eos_id or 0, nxt).astype(
+                            np.int32)
+                out.append(nxt)
+                if eos_id is not None and done.all():
+                    break
+        return np.stack(out, axis=1)
+
+
+# The reference's second name for the same engine, kept so the port's
+# public names match the reference's.
+DecodeEngine = FixedBatchEngine
 
 
 #: The zero-traffic stats record: every key of the non-empty record,
